@@ -1,0 +1,83 @@
+"""Flat parameter plane: the currency of the dispatch path.
+
+A cluster's parameters are raveled into one contiguous fp32 vector padded to
+a multiple of ``PLANE_ALIGN``, so that the multi-round dispatch block and the
+fedagg kernel work on a single ``(capacity, D_pad)`` buffer.  Parameters
+reappear as a pytree only inside the member forward (as views into the
+plane) and at evaluation.
+
+The element order is ``ravel_pytree``'s (``core.tree``): sorted dict keys,
+then list order, each leaf raveled C-order in its reference layout (HWIO
+conv weights, ``(in, out)`` dense weights).  A port plane therefore equals
+the JAX package's plane of the same parameters element by element.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.core.tree import tree_leaves, tree_unflatten
+
+# Multiple every plane length is padded to.  The fedagg kernel loads four
+# columns per thread, and the JAX package pads to the same multiple, so
+# padded lengths agree across packages.
+PLANE_ALIGN = 128
+
+
+@dataclass(frozen=True)
+class PlaneSpec:
+    """Ravel/unravel recipe for one cluster level's parameter pytree."""
+    d: int                      # true parameter count
+    d_pad: int                  # padded plane length (multiple of PLANE_ALIGN)
+    template: object            # the params structure, leaves are None
+    shapes: tuple               # leaf shapes in ravel order
+
+    def to_plane(self, params) -> torch.Tensor:
+        """params pytree -> (..., d_pad) fp32 plane.  Leading axes beyond a
+        leaf's own shape (a member axis) are kept: a (C, ...) stack of
+        params gives a (C, d_pad) member plane."""
+        leaves = tree_leaves(params)
+        lead = leaves[0].shape[:leaves[0].dim() - len(self.shapes[0])]
+        flat = [x.reshape(*lead, -1).to(torch.float32) for x in leaves]
+        if self.d_pad > self.d:
+            flat.append(leaves[0].new_zeros(*lead, self.d_pad - self.d,
+                                            dtype=torch.float32))
+        return torch.cat(flat, dim=-1)
+
+    def to_params(self, plane: torch.Tensor):
+        """(..., d_pad) plane -> params pytree of views into the plane."""
+        lead = plane.shape[:-1]
+        leaves, off = [], 0
+        for shape in self.shapes:
+            n = math.prod(shape)
+            leaves.append(plane[..., off:off + n].reshape(*lead, *shape))
+            off += n
+        return tree_unflatten(self.template, leaves)
+
+
+def make_plane_spec(params_template) -> PlaneSpec:
+    leaves = tree_leaves(params_template)
+    shapes = tuple(tuple(x.shape) for x in leaves)
+    d = sum(math.prod(s) for s in shapes)
+    d_pad = -(-d // PLANE_ALIGN) * PLANE_ALIGN
+    return PlaneSpec(d=d, d_pad=d_pad,
+                     template=tree_unflatten(params_template,
+                                             [None] * len(shapes)),
+                     shapes=shapes)
+
+
+def pad_member_rows(plane: torch.Tensor, weights: torch.Tensor, rows: int):
+    """Pad a (C, D) member plane and its (C,) weights with zero rows up to
+    ``rows``.  A zero-weight row contributes nothing to any weighted
+    contraction, so callers may round C up to a capacity bucket."""
+    C = plane.shape[0]
+    if rows < C:
+        raise ValueError(f"cannot pad {C} member rows down to {rows}")
+    weights = weights.to(torch.float32)
+    if rows == C:
+        return plane, weights
+    plane = torch.cat([plane, plane.new_zeros(rows - C, plane.shape[1])])
+    weights = torch.cat([weights, weights.new_zeros(rows - C)])
+    return plane, weights

@@ -1,0 +1,600 @@
+"""Fed-RAC orchestrator (Algorithm 1): cluster -> compact -> assign ->
+train the master by FedAvg -> train the slaves under master KD.
+
+Model-family-agnostic via ``FLModelFamily``.  A cluster's members train
+together under one ``torch.func.vmap`` (``core.client``).  Two training
+paths, chosen by ``FLConfig.rounds_per_dispatch``:
+
+* R = 1, ``cluster_round``: host-sampled numpy batches (seed + 977 pid +
+  round, as the JAX package) and a pytree FedAvg;
+* R > 1, ``dispatch_rounds``: R rounds per block over device-resident
+  member shards, parameters carried as one flat fp32 plane, and the FedAvg
+  on the plane through the fedagg kernel.  Batch indices come from a stream
+  keyed on (seed, absolute round, member slot), so any two R agree.
+
+Everything runs on ``device``: ``cuda`` unless the caller asks for ``cpu``.
+Not ported yet: meshes and tensor parallelism, the buffered schedule and
+bank carries, per-round teacher planes, delta shard packs, the per-pid
+reference loop and the observability hooks.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from functools import partial
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregation, assignment as asg, clustering
+from repro_torch.core import compaction, cost_model, rounds as rnd
+from repro_torch.core.client import make_cluster_update
+from repro_torch.core.plane import make_plane_spec
+from repro_torch.core.resources import (LAMBDA_PAPER, Fleet, Participant,
+                                        resource_matrix)
+from repro_torch.core.tree import tree_map
+from repro_torch.data import device_sampler
+from repro_torch.data.sampler import class_balanced_batches, sample_batches
+
+
+@dataclass
+class FLModelFamily:
+    """init(generator, level) -> params on the CPU;
+    loss_and_logits(level, params, batch) -> (mean loss, logits)."""
+    init: Callable
+    loss_and_logits: Callable
+    model_bytes: Callable          # level -> bytes
+    flops_per_sample: Callable     # level -> flops
+    param_specs: Callable | None = None     # tensor-parallel slice
+
+
+@dataclass
+class FLConfig:
+    alpha: float = 0.5
+    kd_T: float = 2.0
+    kd_alpha: float = 0.3
+    E: int = 2
+    local_batch: int = 16
+    steps_per_round: int = 4
+    lr: float = 0.05
+    lam: tuple = LAMBDA_PAPER
+    q_target: float = 0.05
+    delta: float | None = None
+    theta: float = 100.0
+    # MAR time budget; None -> auto-calibrate so the master-cluster budget
+    # admits roughly the fastest ~40% of participants
+    mar: float | None = None
+    kappa: float = 0.7
+    compact_to: int | None = None
+    rounds: int = 20
+    seed: int = 0
+    class_balanced: bool = True
+    use_kd: bool = True
+    # round every cluster's member count up to a capacity bucket (next
+    # power of two up to pad_max, then multiples of pad_max) with zero rows
+    pad_clusters: bool = True
+    pad_max: int = 64
+    # >1 runs that many rounds per dispatch block on the parameter plane
+    rounds_per_dispatch: int = 1
+    consts: rnd.ConvergenceConstants = field(
+        default_factory=rnd.ConvergenceConstants)
+
+
+@dataclass
+class DispatchOut:
+    """Result of one dispatch block (``FedRAC.dispatch_rounds``)."""
+    plane: torch.Tensor               # (D_pad,) fp32
+    losses: torch.Tensor              # (R, C) per-round per-member losses
+    history: torch.Tensor | None      # (R, D_pad) per-round planes
+
+
+@dataclass
+class FedRACResult:
+    k_optimal: int
+    m: int
+    di_values: dict
+    labels: np.ndarray
+    assignment: asg.Assignment
+    history: dict            # level -> [acc per round]
+    final_acc: dict          # level -> acc
+    global_acc: float
+    rounds_used: dict
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means ``cuda``; a CUDA device without a card raises (the
+    engine never falls back to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port on the CPU")
+    return dev
+
+
+class _Program:
+    """One cached round or block program and the number of times it was
+    built (``FedRAC.compile_stats``)."""
+    __slots__ = ("fn", "builds")
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.builds = 1
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+class FedRAC:
+    def __init__(self, parts: "list[Participant] | Fleet",
+                 client_data: list[dict], family: FLModelFamily,
+                 cfg: FLConfig, classes: int, *, device=None):
+        self.device = resolve_device(device)
+        if isinstance(parts, Fleet):
+            self.fleet = parts
+            self.parts = parts.participants()
+        else:
+            self.fleet = None
+            self.parts = parts
+        self.client_data = client_data        # per pid: {"x": ..., "y": ...}
+        self.family = family
+        self.cfg = cfg
+        self.classes = classes
+        self._programs = {}               # program key -> _Program
+        self._plane_specs = {}            # level -> PlaneSpec
+        self._shard_packs = {}            # (level, members, cap, bal) -> pack
+        self._shard_len_pad = None
+        self._class_m_pad = None
+        self._class_tables = {}           # pid -> (table, counts)
+
+    # ------------------------------------------------------------ setup
+    def setup(self):
+        cfg = self.cfg
+        V = resource_matrix(self.fleet if self.fleet is not None
+                            else self.parts)
+        res = clustering.optimal_clusters(V, cfg.lam, seed=cfg.seed)
+        labels = clustering.order_clusters_by_resources(res.normalized,
+                                                        res.labels, cfg.lam)
+        self.k_optimal = res.k
+        self.di_values = res.di_values
+        if cfg.compact_to is not None and cfg.compact_to < res.k:
+            labels = compaction.compact(labels, res.normalized,
+                                        cfg.compact_to)
+        self.labels = labels
+        self.m = len(np.unique(labels))
+        sizes = [(self.family.model_bytes(l), self.family.flops_per_sample(l))
+                 for l in range(self.m)]
+        mar = cfg.mar
+        if mar is None:
+            t_master = np.array([cost_model.round_time(
+                p, sizes[0][1], sizes[0][0], cfg.E) for p in self.parts])
+            mar = (float(np.percentile(t_master, 40))
+                   / (cfg.kappa ** (self.m - 1)))
+        self.mar = mar
+        self.specs = asg.build_cluster_specs(
+            sizes, cfg.consts, E=cfg.E, q_target=cfg.q_target,
+            delta=cfg.delta, theta=cfg.theta, mar=mar, kappa=cfg.kappa,
+            batch_size=cfg.local_batch)
+        self.assignment = asg.assign(self.parts, self.specs, cfg.consts,
+                                     cfg.lr)
+        return self
+
+    def update_resources(self, pid: int, *, s: float | None = None,
+                         r: float | None = None, a: float | None = None):
+        """§IV-A dynamic resources: update a participant's (s, r, a) and
+        re-run the Procedure-2 placement.  Returns (old_level, new_level)."""
+        p = self.parts[pid]
+        if s is not None:
+            p.s = s
+        if r is not None:
+            p.r = r
+        if a is not None:
+            p.a = a
+        return asg.reassign(p, self.assignment, self.specs,
+                            self.cfg.consts, self.cfg.lr)
+
+    # ------------------------------------------------------------ data
+    def _to_device(self, tree):
+        return tree_map(lambda x: torch.as_tensor(x).to(self.device), tree)
+
+    def _class_table(self, pid: int):
+        """Per-member class index table for balanced sampling, padded to
+        the fleet-wide max class count so shapes are stable under
+        Procedure-2 churn."""
+        if self._class_m_pad is None:
+            m = 1
+            for q in range(len(self.parts)):
+                y = np.asarray(self.client_data[q]["y"])
+                if y.size:
+                    m = max(m, int(np.bincount(y, minlength=self.classes)
+                                   .max()))
+            self._class_m_pad = 1 << (m - 1).bit_length()
+        if pid not in self._class_tables:
+            self._class_tables[pid] = device_sampler.build_class_table(
+                np.asarray(self.client_data[pid]["y"]), self.classes,
+                self._class_m_pad)
+        return self._class_tables[pid]
+
+    def _client_batches(self, pid: int, rng_round: int, balanced: bool):
+        """The one-round path's host numpy stream (seed + 977 pid + round)."""
+        d = self.client_data[pid]
+        steps = self.cfg.steps_per_round
+        seed = self.cfg.seed + 977 * pid + rng_round
+        if balanced:
+            return class_balanced_batches(d["x"], d["y"], self.cfg.local_batch,
+                                          steps, self.classes, seed=seed)
+        return sample_batches(d["x"], d["y"], self.cfg.local_batch, steps,
+                              seed=seed)
+
+    def _capacity(self, C: int) -> int:
+        """Bucket a live member count to its padded capacity: next power of
+        two capped at pad_max, then multiples of pad_max."""
+        cfg = self.cfg
+        if not cfg.pad_clusters or C <= 0:
+            return C
+        if C >= cfg.pad_max:
+            return -(-C // cfg.pad_max) * cfg.pad_max
+        return min(1 << (C - 1).bit_length(), cfg.pad_max)
+
+    def _stacked_batches(self, members: list[int], rng_round: int,
+                         level: int, capacity: int | None = None):
+        """Per-member batches stacked to (capacity, steps, batch, ...) on the
+        device; slots past len(members) are zero rows (they train under a
+        zero step mask and zero weight)."""
+        balanced = self.cfg.class_balanced and level == 0
+        per = [self._client_batches(pid, rng_round, balanced)
+               for pid in members]
+        pad = (capacity or len(members)) - len(members)
+        out = {}
+        for k in per[0]:
+            arr = np.stack([b[k] for b in per])
+            if pad:
+                arr = np.concatenate(
+                    [arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
+            out[k] = torch.as_tensor(arr).to(self.device)
+        return out
+
+    # ------------------------------------------------------------ params
+    def init_params(self, level: int):
+        """A level's initial parameters, drawn from a generator seeded with
+        ``seed + level`` and moved to the device."""
+        g = torch.Generator().manual_seed(self.cfg.seed + level)
+        return self._to_device(self.family.init(g, level))
+
+    def plane_spec(self, level: int):
+        """Flat-plane recipe of one level (cached; built from a template
+        draw, whose values are not used)."""
+        if level not in self._plane_specs:
+            template = self.family.init(torch.Generator().manual_seed(0),
+                                        level)
+            self._plane_specs[level] = make_plane_spec(template)
+        return self._plane_specs[level]
+
+    def plane_of(self, level: int, params) -> torch.Tensor:
+        """Ravel a params pytree into its (D_pad,) fp32 plane."""
+        return self.plane_spec(level).to_plane(params)
+
+    def params_of(self, level: int, plane):
+        """Unravel a plane into a params pytree (views into the plane)."""
+        return self.plane_spec(level).to_params(plane)
+
+    def _teacher_logits(self, teacher, batches):
+        """Master logits for a (C, steps, batch, ...) batch stack: one
+        forward of the master over the flattened batch."""
+        lead = batches["y"].shape
+        flat = {k: v.reshape(-1, *v.shape[len(lead):])
+                for k, v in batches.items()}
+        with torch.no_grad():
+            _, logits = self.family.loss_and_logits(0, teacher, flat)
+        return logits.reshape(*lead, -1)
+
+    # ------------------------------------------------------------ one round
+    def _cluster_programs(self, level: int, use_kd: bool, capacity: int):
+        """Cached whole-round program for one cluster: broadcast the shared
+        params over the member axis, run every member's local steps under
+        one vmap (teacher logits for slave clusters), then FedAvg."""
+        cfg = self.cfg
+        key = (level, use_kd, capacity, cfg.lr, cfg.kd_T, cfg.kd_alpha)
+        if key not in self._programs:
+            loss_fn = partial(self.family.loss_and_logits, level)
+            kw = dict(kd_T=cfg.kd_T, kd_alpha=cfg.kd_alpha) if use_kd else {}
+            update = make_cluster_update(loss_fn, cfg.lr, **kw)
+
+            def round_fn(params, batches, step_masks, weights, teacher):
+                C = step_masks.shape[0]
+                p_stack = tree_map(lambda x: x.expand(C, *x.shape), params)
+                teachers = (self._teacher_logits(teacher, batches)
+                            if use_kd else None)
+                new_stack, losses = update(p_stack, batches, step_masks,
+                                           teachers)
+                return aggregation.aggregate(new_stack, weights), losses
+
+            self._programs[key] = _Program(round_fn)
+        return self._programs[key]
+
+    def compile_stats(self) -> dict:
+        """{program key -> times built}; every key should read 1."""
+        return {key: prog.builds for key, prog in self._programs.items()}
+
+    def cluster_round(self, level: int, members: list[int], params, r: int,
+                      *, teacher=None, step_masks=None, weights=None):
+        """One communication round for a cluster: every member's local steps
+        under one vmapped update, then FedAvg.
+
+        ``step_masks`` (C, steps) zeroes out SGD steps per member (a zero
+        row leaves that member at the incoming params).  ``weights`` are raw
+        non-negative aggregation weights (default n_eff), renormalized over
+        the members; all-zero weights leave ``params`` unchanged.  The live
+        C is padded to its capacity bucket with zero rows.
+
+        Returns (new_params, member_losses)."""
+        cfg = self.cfg
+        C = len(members)
+        if weights is None:
+            weights = [self.assignment.n_eff.get(pid, 1) for pid in members]
+        w = np.asarray(weights, np.float32)
+        total = float(w.sum())
+        if total <= 0.0:                  # everyone dropped: no-op
+            return params, torch.zeros(C, device=self.device)
+        cap = self._capacity(C)
+        batches = self._stacked_batches(members, r, level, cap)
+        steps = batches["y"].shape[1]
+        masks = np.zeros((cap, steps), np.float32)
+        masks[:C] = (1.0 if step_masks is None
+                     else np.asarray(step_masks, np.float32))
+        w_pad = np.zeros(cap, np.float32)
+        w_pad[:C] = w / total
+        use_kd = teacher is not None and cfg.use_kd
+        round_fn = self._cluster_programs(level, use_kd, cap)
+        new_params, losses = round_fn(
+            params, batches, torch.as_tensor(masks).to(self.device),
+            torch.as_tensor(w_pad).to(self.device), teacher)
+        return new_params, losses[:C]
+
+    # ------------------------------------------------------------ dispatch
+    def _shard_pack(self, level: int, members: list[int], capacity: int,
+                    balanced: bool):
+        """Device-resident member data for the dispatch path: every
+        member's full shard stacked to (capacity, N_pad, ...) once (padded
+        rows are zeros and never drawn), plus host copies of the lengths
+        and, for balanced levels, the class tables the draws need.  N_pad
+        and the table width are fleet-wide powers of two, so shapes do not
+        change with membership."""
+        key = (level, tuple(members), capacity, balanced)
+        if key in self._shard_packs:
+            pack = self._shard_packs.pop(key)      # LRU: refresh on hit
+            self._shard_packs[key] = pack
+            return pack
+        if self._shard_len_pad is None:
+            n_max = max(max((len(self.client_data[q]["y"])
+                             for q in range(len(self.parts))), default=1), 1)
+            self._shard_len_pad = 1 << (n_max - 1).bit_length()
+        N = self._shard_len_pad
+        shards = [self.client_data[pid] for pid in members]
+        packed = {}
+        for k in shards[0]:
+            first = np.asarray(shards[0][k])
+            out = np.zeros((capacity, N) + first.shape[1:], first.dtype)
+            for i, s in enumerate(shards):
+                out[i, :len(s[k])] = s[k]
+            packed[k] = torch.as_tensor(out).to(self.device)
+        n = np.zeros(capacity, np.int64)
+        n[:len(members)] = [len(s["y"]) for s in shards]
+        pack = {"shards": packed, "n": n, "tables": None, "counts": None}
+        if balanced and members:
+            self._class_table(members[0])              # sizes _class_m_pad
+            tables = np.zeros((capacity, self.classes, self._class_m_pad),
+                              np.int32)
+            counts = np.zeros((capacity, self.classes), np.int32)
+            for i, pid in enumerate(members):
+                tables[i], counts[i] = self._class_table(pid)
+            pack["tables"], pack["counts"] = tables, counts
+        if len(self._shard_packs) >= 16:               # bound device memory
+            self._shard_packs.pop(next(iter(self._shard_packs)))
+        self._shard_packs[key] = pack
+        return pack
+
+    def _draw_indices(self, pack, r: int, balanced: bool) -> np.ndarray:
+        """(capacity, steps, batch) sample indices of round ``r`` for every
+        member slot of ``pack``.  The hook parity tests override to inject
+        another stream."""
+        cfg = self.cfg
+        if balanced:
+            return device_sampler.balanced_indices(
+                cfg.seed, r, cfg.steps_per_round, cfg.local_batch,
+                pack["tables"], pack["counts"])
+        return device_sampler.uniform_indices(
+            cfg.seed, r, cfg.steps_per_round, cfg.local_batch, pack["n"])
+
+    def _dispatch_programs(self, level: int, use_kd: bool, capacity: int,
+                           R: int, balanced: bool, want_history: bool):
+        """Cached block program: R communication rounds.  Each round gathers
+        every member's batches from the device-resident shards by the
+        block's pre-drawn indices, runs the vmapped member update from the
+        plane's parameters, and aggregates the (capacity, D_pad) member
+        plane with the fedagg kernel (on a CUDA plane).  A round whose
+        weights sum to zero leaves the plane unchanged."""
+        cfg = self.cfg
+        key = ("dispatch", level, use_kd, capacity, R, balanced,
+               want_history, cfg.lr, cfg.kd_T, cfg.kd_alpha, cfg.seed,
+               cfg.steps_per_round, cfg.local_batch)
+        if key in self._programs:
+            return self._programs[key]
+        loss_fn = partial(self.family.loss_and_logits, level)
+        kw = dict(kd_T=cfg.kd_T, kd_alpha=cfg.kd_alpha) if use_kd else {}
+        update = make_cluster_update(loss_fn, cfg.lr, **kw)
+        spec = self.plane_spec(level)
+
+        def one_round(g, idx, shards, step_masks, weights, teacher):
+            C = step_masks.shape[0]
+            rows = torch.arange(C, device=g.device)[:, None, None]
+            batches = {k: v[rows, idx] for k, v in shards.items()}
+            params = spec.to_params(g)
+            p_stack = tree_map(lambda x: x.expand(C, *x.shape), params)
+            teachers = (self._teacher_logits(teacher, batches)
+                        if use_kd else None)
+            new_stack, losses = update(p_stack, batches, step_masks,
+                                       teachers)
+            new_plane = spec.to_plane(new_stack)            # (C, D_pad)
+            total = weights.sum()
+            denom = torch.where(total > 0.0, total, torch.ones_like(total))
+            agg = aggregation.aggregate_plane(new_plane, weights / denom)
+            return torch.where(total > 0.0, agg, g), losses
+
+        def block_fn(plane, shards, idx, step_masks, weights, teacher):
+            losses, history = [], []
+            for i in range(R):
+                plane, l = one_round(plane, idx[i], shards, step_masks,
+                                     weights, teacher)
+                losses.append(l)
+                if want_history:
+                    history.append(plane)
+            return (plane, torch.stack(losses),
+                    torch.stack(history) if want_history else None)
+
+        self._programs[key] = _Program(block_fn)
+        return self._programs[key]
+
+    def dispatch_rounds(self, level: int, members: list[int], plane,
+                        r0: int, n_rounds: int, *, teacher=None,
+                        step_masks=None, weights=None,
+                        want_history: bool = False) -> DispatchOut:
+        """Run rounds r0 .. r0 + n_rounds - 1 of one cluster as one block.
+
+        ``plane`` is the cluster's (D_pad,) parameter plane.  ``teacher``
+        (a master params pytree) is fixed for the whole block, as in
+        ``train``, whose master is fully trained first.  ``weights`` (raw)
+        and ``step_masks`` may come pre-padded to the capacity as device
+        tensors.  Returns per-round member losses and, with
+        ``want_history``, the per-round planes."""
+        cfg = self.cfg
+        C = len(members)
+        cap = self._capacity(C)
+        balanced = cfg.class_balanced and level == 0
+        use_kd = cfg.use_kd and teacher is not None
+        pack = self._shard_pack(level, members, cap, balanced)
+        S = cfg.steps_per_round
+        if isinstance(weights, torch.Tensor) and weights.shape == (cap,):
+            w = weights
+        else:
+            if weights is None:
+                weights = [self.assignment.n_eff.get(pid, 1)
+                           for pid in members]
+            w = np.zeros(cap, np.float32)
+            w[:C] = np.asarray(weights, np.float32)
+            w = torch.as_tensor(w).to(self.device)
+        if (isinstance(step_masks, torch.Tensor)
+                and step_masks.shape == (cap, S)):
+            masks = step_masks
+        else:
+            masks = np.zeros((cap, S), np.float32)
+            masks[:C] = (1.0 if step_masks is None
+                         else np.asarray(step_masks, np.float32))
+            masks = torch.as_tensor(masks).to(self.device)
+        prog = self._dispatch_programs(level, use_kd, cap, n_rounds,
+                                       balanced, want_history)
+        idx = np.stack([self._draw_indices(pack, r, balanced)
+                        for r in range(r0, r0 + n_rounds)])
+        idx = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
+        new_plane, losses, history = prog(plane, pack["shards"], idx, masks,
+                                          w, teacher if use_kd else None)
+        return DispatchOut(plane=new_plane, losses=losses[:, :C],
+                           history=history)
+
+    # ------------------------------------------------------------ training
+    def _train_cluster(self, level: int, members: list[int], n_rounds: int,
+                       test, teacher=None, record_every: int = 1):
+        params = self.init_params(level)
+        if not members:
+            return params, []
+        if self.cfg.rounds_per_dispatch > 1:
+            return self._train_cluster_dispatch(level, members, n_rounds,
+                                                test, params, teacher,
+                                                record_every)
+        history = []
+        weights = [self.assignment.n_eff.get(pid, 1) for pid in members]
+        for r in range(n_rounds):
+            params, _ = self.cluster_round(level, members, params, r,
+                                           teacher=teacher, weights=weights)
+            if (r + 1) % record_every == 0:
+                history.append(self.evaluate(level, params, test))
+        return params, history
+
+    def _train_cluster_dispatch(self, level: int, members: list[int],
+                                n_rounds: int, test, params, teacher=None,
+                                record_every: int = 1):
+        """Chunk ``n_rounds`` into blocks of ``rounds_per_dispatch`` rounds;
+        the per-round history stays exact through the block's per-round
+        planes when a record boundary falls inside a block."""
+        cfg = self.cfg
+        R = cfg.rounds_per_dispatch
+        plane = self.plane_of(level, params)
+        # masks and weights are the same for every block: pad them once
+        cap = self._capacity(len(members))
+        weights = np.zeros(cap, np.float32)
+        weights[:len(members)] = [self.assignment.n_eff.get(pid, 1)
+                                  for pid in members]
+        weights = torch.as_tensor(weights).to(self.device)
+        masks = torch.zeros((cap, cfg.steps_per_round), device=self.device)
+        masks[:len(members)] = 1.0
+        history = []
+        r = 0
+        while r < n_rounds:
+            L = min(R, n_rounds - r)
+            rec = [rr for rr in range(r, r + L)
+                   if (rr + 1) % record_every == 0]
+            want_hist = any(rr != r + L - 1 for rr in rec)
+            out = self.dispatch_rounds(level, members, plane, r, L,
+                                       teacher=teacher, step_masks=masks,
+                                       weights=weights,
+                                       want_history=want_hist)
+            plane = out.plane
+            for rr in rec:
+                p = self.params_of(level, out.history[rr - r] if want_hist
+                                   else plane)
+                history.append(self.evaluate(level, p, test))
+            r += L
+        return self.params_of(level, plane), history
+
+    def evaluate(self, level: int, params, test) -> float:
+        test = self._to_device(test)
+        with torch.no_grad():
+            _, logits = self.family.loss_and_logits(level, params, test)
+        return float((torch.argmax(logits, -1) == test["y"]).float().mean())
+
+    def train(self, test, rounds_per_cluster: dict | None = None
+              ) -> FedRACResult:
+        cfg = self.cfg
+        test = self._to_device(test)
+        members = self.assignment.members
+        n_rounds = {l: (rounds_per_cluster or {}).get(l, cfg.rounds)
+                    for l in range(self.m)}
+        master_params, hist0 = self._train_cluster(0, members.get(0, []),
+                                                   n_rounds[0], test)
+        history = {0: hist0}
+        final = {0: hist0[-1] if hist0 else 0.0}
+        self.master_params = master_params
+        self.cluster_params = {0: master_params}
+        for level in range(1, self.m):
+            mem = members.get(level, [])
+            if not mem:
+                history[level] = []
+                final[level] = float("nan")
+                continue
+            p, h = self._train_cluster(level, mem, n_rounds[level], test,
+                                       teacher=master_params)
+            history[level] = h
+            final[level] = h[-1] if h else 0.0
+            self.cluster_params[level] = p
+        accs = [a for a in final.values() if a == a]
+        return FedRACResult(
+            k_optimal=self.k_optimal, m=self.m, di_values=self.di_values,
+            labels=self.labels, assignment=self.assignment, history=history,
+            final_acc=final, global_acc=float(np.mean(accs)),
+            rounds_used=n_rounds)
+
+
+def rounds_to_reach(history: list[float], target: float) -> int | None:
+    for i, a in enumerate(history):
+        if a >= target:
+            return i + 1
+    return None

@@ -1,0 +1,34 @@
+"""Carrying weights between the JAX package and the port, through numpy.
+
+Parameters are pytrees of the same structure and layouts in both packages
+(HWIO conv weights, ``(in, out)`` dense weights), and planes hold the same
+elements in the same order, so the conversion is a copy per leaf.  The
+caller turns JAX arrays into numpy first (``jax.tree.map(np.asarray, p)``);
+this module imports neither JAX nor the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.tree import tree_map
+
+
+def params_from_numpy(tree, device="cpu"):
+    """A pytree of numpy arrays -> the port's params on ``device``."""
+    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device),
+                    tree)
+
+
+def params_to_numpy(tree):
+    """The port's params -> a pytree of numpy arrays."""
+    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+
+
+def plane_from_numpy(plane, device="cpu") -> torch.Tensor:
+    """A (..., D_pad) numpy plane -> an fp32 plane on ``device``."""
+    return torch.tensor(np.asarray(plane, np.float32), device=device)
+
+
+def plane_to_numpy(plane: torch.Tensor) -> np.ndarray:
+    return plane.detach().cpu().numpy()
