@@ -5,10 +5,13 @@
 
 Phases, each printing one JSON line:
   1. device   the card, and TF32 turned off for convolutions and matmuls;
-  2. build    both CUDA kernels compiled from ``src/repro_torch/kernels``;
-  3. kernels  each kernel against its plain PyTorch version on the card,
-              then timed with CUDA events (kernel, plain version, the bound
-              from bytes and operations, and a library call where one exists);
+  2. build    the three CUDA kernels (fedagg, distill, flash) compiled from
+              ``src/repro_torch/kernels``, one nvcc each, all at once;
+  3. kernels  each kernel against its plain PyTorch version on the card at
+              the shapes the two main paths give it (and a few more), then
+              timed with CUDA events: kernel, plain version, the bound from
+              bytes and operations, and a library call where one computes
+              the same function;
   4. main     Algorithm 1 at the paper's full CNN width (C128-C64-C128-C256-
               C512-D10) on synth-mnist with the 40 Table-III participants,
               four rounds per cluster in one dispatch block, then each slave's
@@ -18,10 +21,22 @@ Phases, each printing one JSON line:
               every non-empty cluster, distill once per trained slave;
   4b. profile the same training again, warm, on the host clock and under
               torch.profiler: device time by kernel and the busy share;
-  5. cli     ``repro_torch.launch.fl_train`` on the card;
-  6. parity   a small federation on the card (deterministic cuDNN) and on
+  5. cli      ``repro_torch.launch.fl_train`` on the card;
+  6. parity   a small CNN federation on the card (deterministic cuDNN) and on
               the CPU from the same initial weights; the final planes must
-              agree.
+              agree;
+  7. lm_main  Algorithm 1 on the LM family at full OLMo-1B width (two of its
+              16 layers), token-only data, attention on the flash kernel:
+              master FedAvg and a slave under KD through the dispatch path,
+              then the distill kernel on the slave's and the master's
+              last-position logits.  Counts set to 0 before and read after:
+              fedagg once per dispatched round, flash once per layer for
+              every member step (all members in one launch), teacher
+              forward and evaluation, and for the report's forwards;
+  7b. lm_profile each level's init and plane build on the host clock, then
+              the same LM training warm, on the host clock and traced;
+  8. lm_parity a small LM (MHA and GQA) on the card and on the CPU from the
+              same initial weights; the final planes must agree.
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no last line.  It exits nonzero at once
@@ -41,13 +56,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
 L2_BYTES = 50 * 2 ** 20
 ITERS, ITERS_LARGE = 50, 20        # timed calls per measurement
 # fp32 operations the distill kernel does per (student, teacher) logit pair:
 # 2 divides, 3 max, 6 exp, 4 subtracts, 9 multiply-adds, 1 compare
 DISTILL_OPS_PER_LOGIT = 25
 FEDAGG_RTOL, FEDAGG_ATOL = 1e-5, 1e-6
+# tests/test_kernels_flash.py: fp32 and bf16 tolerances of the flash kernel
+FLASH_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (3e-2, 3e-2)}
 PARITY_RTOL, PARITY_ATOL = 2e-4, 1e-5
+# the LM card-vs-CPU check: the same fp32 tolerance as the CNN's
+LM_PARITY_RTOL, LM_PARITY_ATOL = 2e-4, 1e-5
+LM_PARTICIPANTS, LM_CORPUS_TOKENS, LM_SEQ = 14, 12_000, 256
 
 
 def emit(obj):
@@ -88,10 +109,17 @@ def copies(tensors, nbytes):
                         for _ in range(n - 1)]
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak=FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def smi_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------------ kernels
@@ -154,6 +182,81 @@ def time_distill(torch, ops, ref, args):
             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
 
 
+def attn_pairs(S, causal, window):
+    """Unmasked (query, key) pairs of one row of heads: the work these
+    inputs need (tiles the kernel skips are not counted)."""
+    total = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = i + 1 if causal else S
+        total += hi - lo
+    return total
+
+
+def check_flash(torch, ops, ref, dev, case):
+    """Kernel against ``ref.attention_bh_gqa`` on one case, then timed."""
+    BH, KV_rows, S, hd, H = case["bh"], case["kv_rows"], case["S"], \
+        case["hd"], case["H"]
+    dtype = getattr(torch, case["dtype"])
+    kw = dict(causal=case["causal"], window=case["window"],
+              softcap=case["softcap"])
+    g = torch.Generator(device=dev).manual_seed(BH * 7 + S + hd)
+    q = torch.randn(BH, S, hd, device=dev, generator=g).to(dtype)
+    k = torch.randn(KV_rows, S, hd, device=dev, generator=g).to(dtype)
+    v = torch.randn(KV_rows, S, hd, device=dev, generator=g).to(dtype)
+    got = ops.flash_attention_bh(q, k, v, heads=H, **kw)
+    want = ref.attention_bh_gqa(q, k, v, heads=H, **kw)
+    torch.cuda.synchronize()
+    rtol, atol = FLASH_TOL[case["dtype"]]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4 * attn_pairs(S, kw["causal"], kw["window"]) * hd * BH
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    b_ms, b_by = bound(nbytes, flops, peak)
+    reps = copies((q, k, v), nbytes)
+    iters = ITERS_LARGE if nbytes > L2_BYTES else ITERS
+
+    def kernel(q, k, v):
+        return ops.flash_attention_bh(q, k, v, heads=H, **kw)
+
+    def plain(q, k, v):
+        return ref.attention_bh_gqa(q, k, v, heads=H, **kw)
+
+    out = dict(case, max_abs_err=err, tolerance={"rtol": rtol, "atol": atol},
+               bound_ms=b_ms, bound_by=b_by,
+               peak="bf16 tensor 989 TFLOP/s" if dtype == torch.bfloat16
+               else "fp32 CUDA-core 67 TFLOP/s",
+               ms=time_ms(kernel, reps, iters),
+               call_ms=time_ms(kernel, reps, iters, device_only=False),
+               plain_ms=time_ms(plain, reps, min(iters, 10)))
+    if kw["softcap"] > 0:
+        out["library_ms"] = None   # no one PyTorch call applies a softcap
+    else:
+        B = BH // H
+        KV = KV_rows // B
+        mask = None
+        if kw["window"] > 0:
+            i = torch.arange(S, device=dev)
+            mask = ((i[None, :] <= i[:, None]) if kw["causal"] else
+                    torch.ones(S, S, dtype=torch.bool, device=dev))
+            mask = mask & ((i[:, None] - i[None, :]) < kw["window"])
+
+        def library(q, k, v):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.view(B, H, S, hd), k.view(B, KV, S, hd),
+                v.view(B, KV, S, hd), attn_mask=mask,
+                is_causal=kw["causal"] and mask is None,
+                enable_gqa=KV != H)
+
+        out["library_ms"] = time_ms(library, reps, iters)
+    del reps, q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ main path
 def federation(n_part, samples, seed):
     import numpy as np
@@ -172,6 +275,98 @@ def federation(n_part, samples, seed):
     return parts, cd, {"x": test.x, "y": test.y}
 
 
+def engines(srv, torch):
+    """Two engine classes for the smoke: ``Recording`` keeps each block's
+    per-round member losses (``block_losses``) for the checks, and
+    ``TokenFedRAC`` adds, for token-only data, the JAX tests' hooks
+    (tests/test_system.py, tests/test_equivalence_matrix.py):
+    ``_batch_from_gathered`` adds the KD hard label ``y = tokens[..., -1]``
+    and evaluation is -loss."""
+
+    class Recording(srv.FedRAC):
+        def setup(self):
+            self.block_losses = []
+            return super().setup()
+
+        def dispatch_rounds(self, *args, **kw):
+            out = super().dispatch_rounds(*args, **kw)
+            self.block_losses.append((args[0], out.losses.cpu().tolist()))
+            return out
+
+    class TokenFedRAC(Recording):
+        def _batch_from_gathered(self, g):
+            return {"tokens": g["tokens"], "y": g["tokens"][:, :, -1]}
+
+        def evaluate(self, level, params, test):
+            test = self._to_device(test)
+            with torch.no_grad():
+                loss, _ = self.family.loss_and_logits(level, params, test)
+            return -float(loss)
+
+    return Recording, TokenFedRAC
+
+
+def lm_federation(n_part, vocab, corpus_tokens, seq, seed):
+    """Token-only federation: a Markov corpus cut into one chunk per
+    participant; each member holds 16 windows of ``seq`` tokens."""
+    import numpy as np
+    from repro_torch.core.resources import TABLE_III, participants_from_matrix
+    from repro_torch.data.synthetic import lm_batches, make_lm_corpus
+    corpus = make_lm_corpus(vocab, corpus_tokens, seed=seed)
+    cd = [{"tokens": lm_batches(ch, 16, seq, 1, seed=i)[0]}
+          for i, ch in enumerate(np.array_split(corpus, n_part))]
+    V = TABLE_III[np.random.default_rng(seed).integers(0, 40, n_part)]
+    parts = participants_from_matrix(V, n_data=[len(c["tokens"])
+                                                for c in cd])
+    return parts, cd, {"tokens": lm_batches(corpus, 32, seq, 1, seed=99)[0]}
+
+
+def profile_train(torch, eng, test, match):
+    """The warm ``train()`` once on the host clock and once traced; device
+    time by kernel from the trace."""
+    t0 = time.perf_counter()
+    eng.train(test)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.train(test)
+        torch.cuda.synchronize()
+    prof_s = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies, sets): the host op rows
+        # repeat the device time of the kernels they launch
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((e.self_device_time_total, e.count, e.key[:90]))
+    rows.sort(reverse=True)
+    device_s = sum(r[0] for r in rows) / 1e6
+    return {"warm_train_seconds": warm_s, "profiled_train_seconds": prof_s,
+            "device_seconds": device_s,
+            # both from the profiled run: tracing adds time to every launch on
+            # the host and on the device, so the share is approximate
+            "device_busy_share_profiled": device_s / prof_s if rows else None,
+            "port_kernels": [{"name": k, "calls": c, "ms": us / 1e3}
+                             for us, c, k in rows
+                             if any(m in k for m in match)],
+            "top_device_ops": [{"name": k, "calls": c, "ms": us / 1e3}
+                               for us, c, k in rows[:12]]}
+
+
+def check_finite(torch, eng, block_losses, kd_report):
+    for level, losses in block_losses:
+        if not all(math.isfinite(x) for row in losses for x in row):
+            raise AssertionError(f"a dispatched round of cluster {level} "
+                                 "produced a non-finite member loss")
+    for l, p in eng.cluster_params.items():
+        if not bool(torch.isfinite(eng.plane_of(l, p)).all()):
+            raise AssertionError(f"cluster {l} ended with a non-finite plane")
+    if not all(math.isfinite(v) for v in kd_report.values()):
+        raise AssertionError(f"non-finite distillation loss {kd_report}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -181,18 +376,28 @@ def main():
         sys.exit(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing; "
                  "run the script from a checkout of the repository")
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ModelConfig, get_config
     from repro_torch.core import distill, server as srv
-    from repro_torch.core.families import cnn_family
+    from repro_torch.core.families import cnn_family, lm_family
+    from repro_torch.core.scaling import compress_config, param_count
     from repro_torch.kernels import _build
     from repro_torch.kernels.distill import ops as d_ops, ref as d_ref
     from repro_torch.kernels.fedagg import ops as f_ops, ref as f_ref
+    from repro_torch.kernels.flash import ops as a_ops, ref as a_ref
     from repro_torch.launch import fl_train
 
+    def zero_counts():
+        f_ops.weighted_aggregate.launches = 0
+        d_ops.kd_loss_rows.launches = 0
+        a_ops.flash_attention_bh.launches = 0
+
+    def read_counts():
+        return {"fedagg": f_ops.weighted_aggregate.launches,
+                "distill": d_ops.kd_loss_rows.launches,
+                "flash": a_ops.flash_attention_bh.launches}
+
     # 1. device -----------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = smi_line()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -212,27 +417,49 @@ def main():
                         if "registers" in l or "spill" in l]
                     for n, log in logs.items()}})
 
-    # the main path's engine, set up (host-side Procedure 1 and 2) so the
-    # kernels are checked and timed at the shapes it will give them
+    # the main paths' engines, set up (host-side Procedure 1 and 2) so the
+    # kernels are checked and timed at the shapes they will give them
     parts, cd, test = federation(40, 2400, 3)
     cfg = srv.FLConfig(rounds=4, rounds_per_dispatch=4, compact_to=4, seed=3)
-
-    class Recording(srv.FedRAC):
-        """Keeps each block's per-round member losses for the checks."""
-
-        def dispatch_rounds(self, *args, **kw):
-            out = super().dispatch_rounds(*args, **kw)
-            self.block_losses.append(out.losses)
-            return out
-
+    Recording, TokenFedRAC = engines(srv, torch)
     eng = Recording(parts, cd, cnn_family(base_width=1.0), cfg, classes=10,
                     device="cuda").setup()
-    eng.block_losses = []
     members = eng.assignment.members
     live = [l for l in range(eng.m) if members.get(l)]
     main_shapes = {l: (eng._capacity(len(members[l])),
                        eng.plane_spec(l).d_pad) for l in live}
     n_test = len(test["y"])
+
+    lm_base = get_config("olmo-1b").replace(n_layers=2, attn_impl="pallas")
+    lm_cut = {"n_layers": "2 of 16", "rounds": 2, "steps_per_round": 2,
+              "local_batch": 4, "seq": LM_SEQ,
+              "corpus_tokens": LM_CORPUS_TOKENS,
+              "participants": LM_PARTICIPANTS, "weights": "random, seeded",
+              "data": "synthetic Markov corpus (make_lm_corpus)"}
+    lm_cfg = srv.FLConfig(rounds=2, rounds_per_dispatch=2, steps_per_round=2,
+                          local_batch=4, class_balanced=False, compact_to=2,
+                          lr=0.05, seed=3)
+    t0 = time.perf_counter()
+    lparts, lcd, ltest = lm_federation(LM_PARTICIPANTS, lm_base.vocab_size,
+                                       LM_CORPUS_TOKENS, LM_SEQ, 3)
+    corpus_s = time.perf_counter() - t0
+    lm = TokenFedRAC(lparts, lcd, lm_family(lm_base, 0.5), lm_cfg,
+                     classes=lm_base.padded_vocab, device="cuda").setup()
+    lm_members = lm.assignment.members
+    lm_live = [l for l in range(lm.m) if lm_members.get(l)]
+    if not (0 in lm_live and any(l > 0 for l in lm_live)):
+        raise AssertionError(f"the LM federation needs a master and a slave "
+                             f"cluster, got {lm_members}")
+    lm_sizes = {l: param_count(compress_config(lm_base, 0.5, l))
+                for l in range(lm.m)}
+    lm_shapes = {l: (lm._capacity(len(lm_members[l])),
+                     lm.plane_spec(l).d_pad) for l in lm_live}
+    cap_max = max(c for c, _ in lm_shapes.values())
+    if cap_max > 8:
+        raise AssertionError(f"LM capacity {cap_max} > 8 does not fit the "
+                             "memory reckoning")
+    H, hd = lm_base.n_heads, lm_base.head_dim
+    B = lm_cfg.local_batch
 
     # 3. kernels ----------------------------------------------------------
     fed_shapes = sorted(set(main_shapes.values()) | {(16, 1_629_440),
@@ -243,19 +470,22 @@ def main():
             fed_checks[(C, D)] = check_fedagg(torch, f_ops, f_ref, dev, C,
                                               D)[2]
     fed_timed = {}
-    for C, D in fed_shapes:
+    for C, D in fed_shapes + [lm_shapes[0]]:
         x, w, err = check_fedagg(torch, f_ops, f_ref, dev, C, D)
         fed_checks[(C, D)] = err
         fed_timed[(C, D)] = dict(time_fedagg(torch, f_ops, f_ref, x, w),
                                  max_abs_err=err)
         del x, w
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "fedagg",
           "tolerance": {"rtol": FEDAGG_RTOL, "atol": FEDAGG_ATOL},
           "max_abs_err": {f"{C}x{D}": e for (C, D), e in fed_checks.items()},
           "timed": {f"{C}x{D}": v for (C, D), v in fed_timed.items()}})
+    V_lm = lm_base.padded_vocab
+    n_lm_test = len(ltest["tokens"])
     dist_cases = [(n_test, 10, torch.float32), (256, 10, torch.float32),
-                  (8, 7000, torch.float32), (512, 151_936, torch.float32),
-                  (16, 512, torch.bfloat16)]
+                  (8, 7000, torch.float32), (n_lm_test, V_lm, torch.float32),
+                  (512, 151_936, torch.float32), (16, 512, torch.bfloat16)]
     dist_timed = {}
     for N, V, dt in dist_cases:
         args, err = check_distill(torch, d_ops, d_ref, dev, N, V, dt)
@@ -268,11 +498,33 @@ def main():
           "timed": {f"{N}x{V}:{dt}": v
                     for (N, V, dt), v in dist_timed.items()}})
 
+    def flash_case(name, B, H, KV, S, hd, dtype="float32", causal=True,
+                   window=0, softcap=0.0):
+        return {"name": name, "bh": B * H, "kv_rows": B * KV, "H": H,
+                "S": S, "hd": hd, "dtype": dtype, "causal": causal,
+                "window": window, "softcap": softcap}
+
+    C0 = lm_shapes[0][0]
+    flash_cases = [
+        flash_case("lm_main_member_step", C0 * B, H, H, LM_SEQ, hd),
+        flash_case("qwen3-8b_gqa", 1, 32, 8, 2048, 128),
+        flash_case("qwen3-8b_gqa_bf16", 1, 32, 8, 2048, 128, "bfloat16"),
+        flash_case("gemma2-9b_local", 1, 16, 8, 8192, 256, window=4096,
+                   softcap=50.0),
+        flash_case("non_causal_hd32", 2, 4, 4, 64, 32, causal=False),
+        flash_case("non_causal_hd8", 2, 4, 2, 64, 8, causal=False),
+        flash_case("ragged_s17_hd8", 4, 4, 4, 17, 8)]
+    flash_timed = {}
+    for case in flash_cases:
+        flash_timed[case["name"]] = check_flash(torch, a_ops, a_ref, dev,
+                                                case)
+        emit({"phase": "kernels", "kernel": "flash",
+              **flash_timed[case["name"]]})
+
     # 4. main path, full width --------------------------------------------
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    f_ops.weighted_aggregate.launches = 0
-    d_ops.kd_loss_rows.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     res = eng.train(test)
     torch.cuda.synchronize()
@@ -293,26 +545,16 @@ def main():
                 use_kernel=True))
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {"fedagg": f_ops.weighted_aggregate.launches,
-                "distill": d_ops.kd_loss_rows.launches}
+    cnn_launches = read_counts()
     dispatched = cfg.rounds * len(live)
-    if not (dispatched > 0 and launches["fedagg"] == dispatched):
-        raise AssertionError(f"fedagg launched {launches['fedagg']} times, "
-                             f"expected {dispatched} dispatched rounds")
+    if not (dispatched > 0 and cnn_launches["fedagg"] == dispatched):
+        raise AssertionError(f"fedagg launched {cnn_launches['fedagg']} "
+                             f"times, expected {dispatched} dispatched rounds")
     slaves = [l for l in live if l > 0]
-    if not (slaves and launches["distill"] == len(slaves)):
-        raise AssertionError(f"distill launched {launches['distill']} times "
-                             f"for slaves {slaves}")
-    planes = {l: eng.plane_of(l, p) for l, p in eng.cluster_params.items()}
-    for losses in eng.block_losses:
-        if not bool(torch.isfinite(losses).all()):
-            raise AssertionError("a dispatched round produced a non-finite "
-                                 "member loss")
-    for l, pl in planes.items():
-        if not bool(torch.isfinite(pl).all()):
-            raise AssertionError(f"cluster {l} ended with a non-finite plane")
-    if not all(math.isfinite(v) for v in kd_report.values()):
-        raise AssertionError(f"non-finite distillation loss {kd_report}")
+    if not (slaves and cnn_launches["distill"] == len(slaves)):
+        raise AssertionError(f"distill launched {cnn_launches['distill']} "
+                             f"times for slaves {slaves}")
+    check_finite(torch, eng, eng.block_losses, kd_report)
     emit({"phase": "main", "k_optimal": eng.k_optimal, "m": eng.m,
           "di_values": {str(k): v for k, v in eng.di_values.items()},
           "members": {str(l): len(v) for l, v in members.items()},
@@ -324,40 +566,11 @@ def main():
                                       for l, v in kd_report.items()},
           "train_seconds": train_s, "main_seconds": main_s,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "dispatched_rounds": dispatched})
+          "launches": cnn_launches, "dispatched_rounds": dispatched})
 
-    # 4b. where the time goes: the same train() again, warm (programs
-    # built, cuDNN initialised), once on the host clock and once under
-    # torch.profiler for the device time by kernel
-    t0 = time.perf_counter()
-    eng.train(test)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        eng.train(test)
-        torch.cuda.synchronize()
-    prof_s = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies, sets): the host op rows
-        # repeat the device time of the kernels they launch
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append((e.self_device_time_total, e.count, e.key[:90]))
-    rows.sort(reverse=True)
-    device_s = sum(r[0] for r in rows) / 1e6
-    emit({"phase": "profile", "warm_train_seconds": warm_s,
-          "profiled_train_seconds": prof_s,
-          "device_seconds": device_s,
-          # both from the profiled run: tracing adds time to every launch on
-          # the host and on the device, so the share is approximate
-          "device_busy_share_profiled": device_s / prof_s if rows else None,
-          "fedagg_kernel": [{"calls": c, "ms": us / 1e3}
-                            for us, c, k in rows if "fedagg" in k],
-          "top_device_ops": [{"name": k, "calls": c, "ms": us / 1e3}
-                             for us, c, k in rows[:10]]})
+    # 4b. where the time goes: the same train() again, warm
+    emit(dict({"phase": "profile"},
+              **profile_train(torch, eng, test, ("fedagg",))))
 
     # 5. cli --------------------------------------------------------------
     buf = io.StringIO()
@@ -376,14 +589,14 @@ def main():
     torch.backends.cudnn.deterministic = True
     finals, inits = {}, {}
     for where in ("cpu", "cuda"):
-        parts, cd, test = federation(8, 400, 3)
-        e = srv.FedRAC(parts, cd, cnn_family(base_width=0.125),
+        p8, cd8, test8 = federation(8, 400, 3)
+        e = srv.FedRAC(p8, cd8, cnn_family(base_width=0.125),
                        srv.FLConfig(rounds=2, rounds_per_dispatch=2,
                                     compact_to=2, seed=3),
                        classes=10, device=where).setup()
         inits[where] = {l: e.plane_of(l, e.init_params(l)).cpu()
                         for l in range(e.m)}
-        e.train(test)
+        e.train(test8)
         finals[where] = {l: e.plane_of(l, p).cpu()
                          for l, p in e.cluster_params.items()}
     parity = {}
@@ -401,25 +614,158 @@ def main():
                                            "atol": PARITY_ATOL},
           "levels": parity})
 
+    # 7. LM main path, OLMo-1B width --------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    lres = lm.train(ltest)
+    torch.cuda.synchronize()
+    lm_train_s = time.perf_counter() - t0
+    lt = torch.as_tensor(ltest["tokens"], device=dev)
+    ly = lt[:, -1]
+    lm_kd = {}
+    with torch.no_grad():
+        _, t_logits = lm.family.loss_and_logits(0, lm.master_params,
+                                                {"tokens": lt})
+        for level, p in lm.cluster_params.items():
+            if level == 0:
+                continue
+            _, s_logits = lm.family.loss_and_logits(level, p, {"tokens": lt})
+            lm_kd[level] = float(distill.kd_loss(
+                s_logits, ly, t_logits, T=lm_cfg.kd_T, alpha=lm_cfg.kd_alpha,
+                use_kernel=True))
+    torch.cuda.synchronize()
+    lm_main_s = time.perf_counter() - t0
+    lm_peak = torch.cuda.max_memory_allocated()
+    lm_launches = read_counts()
+    L = lm_base.n_layers
+    R, steps = lm_cfg.rounds, lm_cfg.steps_per_round
+    lm_slaves = [l for l in lm_live if l > 0]
+    # per dispatched round of a cluster: one launch per layer for each member
+    # step (all members in one launch), one per layer for the teacher forward
+    # of a slave under KD, one per layer for the round's evaluation; then
+    # one forward each of the master and every slave for the KD report
+    want_flash = sum(R * L * (steps + 1 + (1 if l > 0 else 0))
+                     for l in lm_live) + L * (1 + len(lm_slaves))
+    want = {"fedagg": R * len(lm_live), "distill": len(lm_slaves),
+            "flash": want_flash}
+    if lm_launches != want:
+        raise AssertionError(f"LM path launches {lm_launches}, expected "
+                             f"{want}")
+    check_finite(torch, lm, lm.block_losses, lm_kd)
+    emit({"phase": "lm_main", "config": "olmo-1b", "cut": lm_cut,
+          "d_model": lm_base.d_model, "heads": [lm_base.n_heads,
+                                                lm_base.n_kv_heads],
+          "head_dim": hd, "d_ff": lm_base.d_ff,
+          "vocab": [lm_base.vocab_size, lm_base.padded_vocab],
+          "norm": lm_base.norm_type, "k_optimal": lm.k_optimal, "m": lm.m,
+          "params_per_level": {str(l): n for l, n in lm_sizes.items()},
+          "members": {str(l): len(v) for l, v in lm_members.items()},
+          "capacity_and_d_pad": {str(l): list(v)
+                                 for l, v in lm_shapes.items()},
+          "round_member_losses": lm.block_losses,
+          "neg_loss_curves": {str(l): h for l, h in lres.history.items()},
+          "slave_kd_loss_vs_master": {str(l): v for l, v in lm_kd.items()},
+          "corpus_seconds": corpus_s, "train_seconds_cold": lm_train_s,
+          "main_seconds": lm_main_s, "peak_mem_bytes": lm_peak,
+          "launches": lm_launches, "expected_launches": want})
+
+    # 7b. the same LM training warm, and traced; and the host's share:
+    # each train() draws every level's initial weights on the host and
+    # moves them into a plane on the card
+    init_s = {}
+    for l in lm_live:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane = lm.plane_of(l, lm.init_params(l))
+        torch.cuda.synchronize()
+        init_s[str(l)] = time.perf_counter() - t0
+        del plane
+    emit(dict({"phase": "lm_profile", "init_and_plane_seconds": init_s},
+              **profile_train(torch, lm, ltest, ("fedagg", "flash"))))
+    del lm
+    torch.cuda.empty_cache()
+
+    # 8. LM card == CPU ---------------------------------------------------
+    small = dict(name="matrix-lm", family="dense", n_layers=2, d_model=32,
+                 n_heads=4, n_kv_heads=4, head_dim=8, d_ff=64, vocab_size=64,
+                 rope_theta=1e4, attn_impl="pallas")
+    lm_parity = {}
+    for variant, kv in (("mha", 4), ("gqa", 2)):
+        base = ModelConfig(**dict(small, n_kv_heads=kv))
+        finals, inits, runs = {}, {}, {}
+        for where in ("cpu", "cuda"):
+            sp, scd, stest = lm_federation(8, 64, 8_000, 17, 0)
+            e = TokenFedRAC(sp, scd, lm_family(base, 0.5),
+                            srv.FLConfig(rounds=2, rounds_per_dispatch=2,
+                                         steps_per_round=3, lr=0.05,
+                                         local_batch=4, compact_to=2,
+                                         class_balanced=False, seed=0),
+                            classes=64, device=where).setup()
+            inits[where] = {l: e.plane_of(l, e.init_params(l)).cpu()
+                            for l in range(e.m)}
+            zero_counts()
+            runs[where] = e.train(stest).history
+            runs[where + "_flash_launches"] = \
+                a_ops.flash_attention_bh.launches
+            finals[where] = {l: e.plane_of(l, p).cpu()
+                             for l, p in e.cluster_params.items()}
+        if not (runs["cuda_flash_launches"] > 0
+                and runs["cpu_flash_launches"] == 0):
+            raise AssertionError(f"LM parity: flash launches {runs}")
+        levels = {}
+        for l in finals["cpu"]:
+            diff = (finals["cuda"][l] - finals["cpu"][l]).abs()
+            allowed = LM_PARITY_ATOL + LM_PARITY_RTOL * finals["cpu"][l].abs()
+            levels[str(l)] = {"max_abs_diff": float(diff.max()),
+                              "worst_share_of_tolerance":
+                                  float((diff / allowed).max())}
+        lm_parity[variant] = {"levels": levels, "neg_loss": runs}
+        emit({"phase": "lm_parity", "variant": variant,
+              "tolerance": {"rtol": LM_PARITY_RTOL, "atol": LM_PARITY_ATOL},
+              **lm_parity[variant]})
+        for l in finals["cpu"]:
+            torch.testing.assert_close(inits["cuda"][l], inits["cpu"][l],
+                                       rtol=0, atol=0)
+            torch.testing.assert_close(finals["cuda"][l], finals["cpu"][l],
+                                       rtol=LM_PARITY_RTOL,
+                                       atol=LM_PARITY_ATOL)
+
     # kernels line, card line, last line -----------------------------------
-    C0, D0 = main_shapes[0]
+    D0 = lm_shapes[0][1]
     fed = fed_timed[(C0, D0)]
-    dist = dist_timed[(n_test, 10, str(torch.float32))]
+    dist = dist_timed[(n_lm_test, V_lm, str(torch.float32))]
+    fl = flash_timed["lm_main_member_step"]
+    by_path = {k: {"cnn_main": cnn_launches[k], "lm_main": lm_launches[k]}
+               for k in cnn_launches}
     emit({"kernels": [
         {"name": "fedagg", "route": "cuda",
          "source": "src/repro_torch/kernels/fedagg/csrc/fedagg.cu",
          "replaces": "src/repro/kernels/fedagg/kernel.py:23",
-         "shape": [C0, D0], "launches": launches["fedagg"],
+         "shape": [C0, D0], "launches": lm_launches["fedagg"],
+         "launches_by_path": by_path["fedagg"],
          "max_abs_err": fed["max_abs_err"], "ms": fed["ms"],
          "plain_ms": fed["plain_ms"], "bound_ms": fed["bound_ms"],
          "bound_by": fed["bound_by"], "library_ms": fed["library_ms"]},
         {"name": "distill", "route": "cuda",
          "source": "src/repro_torch/kernels/distill/csrc/distill.cu",
          "replaces": "src/repro/kernels/distill/kernel.py:83",
-         "shape": [n_test, 10], "launches": launches["distill"],
+         "shape": [n_lm_test, V_lm], "launches": lm_launches["distill"],
+         "launches_by_path": by_path["distill"],
          "max_abs_err": dist["max_abs_err"], "ms": dist["ms"],
          "plain_ms": dist["plain_ms"], "bound_ms": dist["bound_ms"],
          "bound_by": dist["bound_by"], "library_ms": dist["library_ms"]},
+        {"name": "flash", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash/csrc/flash.cu",
+         "replaces": "src/repro/kernels/flash/kernel.py:68",
+         "shape": [fl["bh"], fl["S"], fl["hd"]],
+         "launches": lm_launches["flash"],
+         "launches_by_path": by_path["flash"],
+         "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
+         "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
+         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

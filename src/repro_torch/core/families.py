@@ -1,4 +1,5 @@
-"""Ready-made ``FLModelFamily`` adapters: the paper's CNN and a small MLP.
+"""Ready-made ``FLModelFamily`` adapters: the paper's CNN, a small MLP and
+the federated LM family.
 
 ``init(generator, level)`` draws on the CPU from a ``torch.Generator``; the
 engine moves parameters to its device.  ``param_specs`` stays None until the
@@ -9,9 +10,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.distill import ce_loss
+from repro_torch.core.scaling import compress_config, model_bytes, param_count
 from repro_torch.core.server import FLModelFamily
-from repro_torch.models import cnn
+from repro_torch.models import cnn, transformer
 
 
 def cnn_family(*, classes: int = 10, in_channels: int = 1, alpha: float = 0.5,
@@ -72,3 +75,37 @@ def mlp_family(*, classes: int = 10, in_dim: int = 14 * 14,
         init=init, loss_and_logits=loss_and_logits, model_bytes=mb,
         flops_per_sample=lambda l: 2.0 * (in_dim * width(l)
                                           + width(l) * classes))
+
+
+def lm_family(base_cfg: ModelConfig, alpha: float = 0.5) -> FLModelFamily:
+    """Federated LM family: per-cluster α-compressed configs (same vocab,
+    so KD-compatible logits).
+
+    Batch contract: ``batch = {"tokens": (B, S)}``.  The LM loss derives its
+    next-token labels from ``tokens[:, 1:]`` itself and reads no other key.
+    Under KD the engine's batches also carry ``"y": (B,)``, the
+    last-position token id, which ``core.client`` pairs as the hard label
+    with this family's KD logits.  KD logits convention: ``loss_and_logits``
+    returns the LAST-position distribution ``logits[:, -1]``, (B, V_pad), the
+    (B, classes) shape the CNN and MLP families emit.  As in the JAX family,
+    the padded vocabulary is not masked here."""
+    def cfg_at(level):
+        return compress_config(base_cfg, alpha, level)
+
+    def init(generator, level):
+        return transformer.init_params(cfg_at(level), generator)
+
+    def loss_and_logits(level, params, batch):
+        cfg = cfg_at(level)
+        logits, aux = transformer.forward(cfg, params, batch["tokens"])
+        lg = logits[:, :-1].to(torch.float32)
+        lbl = batch["tokens"][:, 1:].long()
+        lse = torch.logsumexp(lg, dim=-1)
+        picked = torch.gather(lg, -1, lbl[..., None])[..., 0]
+        ce = torch.mean(lse - picked) + cfg.router_aux_coef * aux
+        return ce, logits[:, -1]
+
+    return FLModelFamily(
+        init=init, loss_and_logits=loss_and_logits,
+        model_bytes=lambda l: float(model_bytes(cfg_at(l))),
+        flops_per_sample=lambda l: 6.0 * param_count(cfg_at(l)))

@@ -12,6 +12,13 @@ paths, chosen by ``FLConfig.rounds_per_dispatch``:
   on the plane through the fedagg kernel.  Batch indices come from a stream
   keyed on (seed, absolute round, member slot), so any two R agree.
 
+Member data reaches the dispatch path through two hooks with the JAX
+package's contracts: ``_member_shard(pid)`` gives one member's shard (any
+pytree; its first leaf's leading axis is the shard length), and
+``_batch_from_gathered`` turns one member's gathered (steps, batch, ...)
+slice into the family's batch.  The defaults serve ``{"x", "y"}`` data; a
+token-only LM federation overrides them.
+
 Everything runs on ``device``: ``cuda`` unless the caller asks for ``cpu``.
 Not ported yet: meshes and tensor parallelism, the buffered schedule and
 bank carries, per-round teacher planes, delta shard packs, the per-pid
@@ -25,6 +32,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.func import vmap
 
 from repro_torch.core import aggregation, assignment as asg, clustering
 from repro_torch.core import compaction, cost_model, rounds as rnd
@@ -32,7 +40,7 @@ from repro_torch.core.client import make_cluster_update
 from repro_torch.core.plane import make_plane_spec
 from repro_torch.core.resources import (LAMBDA_PAPER, Fleet, Participant,
                                         resource_matrix)
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import device_sampler
 from repro_torch.data.sampler import class_balanced_batches, sample_batches
 
@@ -135,7 +143,7 @@ class FedRAC:
         else:
             self.fleet = None
             self.parts = parts
-        self.client_data = client_data        # per pid: {"x": ..., "y": ...}
+        self.client_data = client_data        # per pid: a shard pytree
         self.family = family
         self.cfg = cfg
         self.classes = classes
@@ -196,6 +204,19 @@ class FedRAC:
     def _to_device(self, tree):
         return tree_map(lambda x: torch.as_tensor(x).to(self.device), tree)
 
+    def _member_shard(self, pid: int):
+        """Hook: one member's full data shard (pytree, leading axis = n_i)
+        for the dispatch path.  Subclasses with non-{"x","y"} data override
+        this plus ``_batch_from_gathered``."""
+        return self.client_data[pid]
+
+    def _batch_from_gathered(self, gathered):
+        """Hook: post-gather transform from one member's (steps, batch, ...)
+        shard slice to the loss_fn batch format.  The block program applies
+        it under ``torch.func.vmap`` over the member axis, so it sees one
+        member, as in the JAX package."""
+        return gathered
+
     def _class_table(self, pid: int):
         """Per-member class index table for balanced sampling, padded to
         the fleet-wide max class count so shapes are stable under
@@ -203,14 +224,14 @@ class FedRAC:
         if self._class_m_pad is None:
             m = 1
             for q in range(len(self.parts)):
-                y = np.asarray(self.client_data[q]["y"])
+                y = np.asarray(self._member_shard(q)["y"])
                 if y.size:
                     m = max(m, int(np.bincount(y, minlength=self.classes)
                                    .max()))
             self._class_m_pad = 1 << (m - 1).bit_length()
         if pid not in self._class_tables:
             self._class_tables[pid] = device_sampler.build_class_table(
-                np.asarray(self.client_data[pid]["y"]), self.classes,
+                np.asarray(self._member_shard(pid)["y"]), self.classes,
                 self._class_m_pad)
         return self._class_tables[pid]
 
@@ -365,20 +386,23 @@ class FedRAC:
             self._shard_packs[key] = pack
             return pack
         if self._shard_len_pad is None:
-            n_max = max(max((len(self.client_data[q]["y"])
+            n_max = max(max((_shard_len(self._member_shard(q))
                              for q in range(len(self.parts))), default=1), 1)
             self._shard_len_pad = 1 << (n_max - 1).bit_length()
         N = self._shard_len_pad
-        shards = [self.client_data[pid] for pid in members]
-        packed = {}
-        for k in shards[0]:
-            first = np.asarray(shards[0][k])
+        shards = [self._member_shard(pid) for pid in members]
+
+        def pack_leaf(*xs):
+            first = np.asarray(xs[0])
             out = np.zeros((capacity, N) + first.shape[1:], first.dtype)
-            for i, s in enumerate(shards):
-                out[i, :len(s[k])] = s[k]
-            packed[k] = torch.as_tensor(out).to(self.device)
+            for i, x in enumerate(xs):
+                x = np.asarray(x)
+                out[i, :x.shape[0]] = x
+            return torch.as_tensor(out).to(self.device)
+
+        packed = tree_map(pack_leaf, *shards)
         n = np.zeros(capacity, np.int64)
-        n[:len(members)] = [len(s["y"]) for s in shards]
+        n[:len(members)] = [_shard_len(s) for s in shards]
         pack = {"shards": packed, "n": n, "tables": None, "counts": None}
         if balanced and members:
             self._class_table(members[0])              # sizes _class_m_pad
@@ -409,7 +433,9 @@ class FedRAC:
                            R: int, balanced: bool, want_history: bool):
         """Cached block program: R communication rounds.  Each round gathers
         every member's batches from the device-resident shards by the
-        block's pre-drawn indices, runs the vmapped member update from the
+        block's pre-drawn indices (through ``_batch_from_gathered``, per
+        member), runs the teacher forward on them for a KD cluster, then
+        the vmapped member update from the
         plane's parameters, and aggregates the (capacity, D_pad) member
         plane with the fedagg kernel (on a CUDA plane).  A round whose
         weights sum to zero leaves the plane unchanged."""
@@ -427,7 +453,8 @@ class FedRAC:
         def one_round(g, idx, shards, step_masks, weights, teacher):
             C = step_masks.shape[0]
             rows = torch.arange(C, device=g.device)[:, None, None]
-            batches = {k: v[rows, idx] for k, v in shards.items()}
+            batches = vmap(self._batch_from_gathered)(
+                tree_map(lambda v: v[rows, idx], shards))
             params = spec.to_params(g)
             p_stack = tree_map(lambda x: x.expand(C, *x.shape), params)
             teachers = (self._teacher_logits(teacher, batches)
@@ -591,6 +618,11 @@ class FedRAC:
             labels=self.labels, assignment=self.assignment, history=history,
             final_acc=final, global_acc=float(np.mean(accs)),
             rounds_used=n_rounds)
+
+
+def _shard_len(shard) -> int:
+    """A shard's length: the leading axis of its first leaf."""
+    return int(np.asarray(tree_leaves(shard)[0]).shape[0])
 
 
 def rounds_to_reach(history: list[float], target: float) -> int | None:

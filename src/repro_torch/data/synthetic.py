@@ -3,9 +3,11 @@
 ``make_classification`` draws class-prototype images plus noise: separable
 enough for the paper's CNN to learn, hard enough that accuracy curves have
 the two-phase shape of Fig. 2.  Stand-ins: synth-mnist, synth-har,
-synth-cifar, synth-shl (shapes in ``SPECS``).  The arrays are bit-identical
-to the JAX package's for the same seed, which the host batch stream of the
-one-round path depends on.
+synth-cifar, synth-shl (shapes in ``SPECS``).  ``make_lm_corpus`` is an
+order-2 Markov token stream with per-state emissions, so next-token loss is
+learnable by small LMs; ``lm_batches`` cuts windows out of it.  The arrays
+are bit-identical to the JAX package's for the same seed, which the host
+batch stream of the one-round path depends on.
 """
 from __future__ import annotations
 
@@ -52,3 +54,25 @@ def train_test_split(ds: Dataset, test_frac: float = 0.2, seed: int = 0):
     tr, te = idx[:cut], idx[cut:]
     return (Dataset(ds.name, ds.x[tr], ds.y[tr], ds.classes),
             Dataset(ds.name, ds.x[te], ds.y[te], ds.classes))
+
+
+def make_lm_corpus(vocab: int, length: int, seed: int = 0,
+                   n_states: int = 8) -> np.ndarray:
+    """Markov chain over vocab with low-entropy per-state emissions."""
+    rng = np.random.default_rng(seed)
+    trans = rng.dirichlet(np.ones(n_states) * 0.3, size=n_states)
+    emit = rng.dirichlet(np.ones(vocab) * 0.05, size=n_states)
+    toks = np.empty(length, np.int32)
+    s = 0
+    for i in range(length):
+        toks[i] = rng.choice(vocab, p=emit[s])
+        s = rng.choice(n_states, p=trans[s])
+    return toks
+
+
+def lm_batches(tokens: np.ndarray, batch: int, seq: int, steps: int,
+               seed: int = 0) -> np.ndarray:
+    """(steps, batch, seq) windows of ``tokens`` at seeded start offsets."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, len(tokens) - seq - 1, (steps, batch))
+    return np.stack([[tokens[s:s + seq] for s in row] for row in starts])

@@ -1,8 +1,11 @@
 """Carrying weights between the JAX package and the port, through numpy.
 
 Parameters are pytrees of the same structure and layouts in both packages
-(HWIO conv weights, ``(in, out)`` dense weights), and planes hold the same
-elements in the same order, so the conversion is a copy per leaf.  The
+(HWIO conv weights, ``(in, out)`` dense weights, the LM's nested dicts with
+superblock-stacked leaves such as ``blocks/p0/mixer/wq`` of shape
+``(n_sb, d, q_dim)``, and empty dicts for parameter-free norms), and planes
+hold the same elements in the same order, so the conversion is a copy per
+leaf.  The
 caller turns JAX arrays into numpy first (``jax.tree.map(np.asarray, p)``);
 this module imports neither JAX nor the JAX package.
 """

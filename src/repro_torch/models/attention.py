@@ -1,0 +1,149 @@
+"""Grouped-query attention with sliding window, softcap, qk-norm, (M-)RoPE.
+
+A torch copy of the full-sequence half of ``repro.models.attention``:
+``attn_forward`` (train / prefill), with three routes chosen by
+``cfg.attn_impl``, whose values are the JAX package's so configurations
+carry across:
+
+* ``"jnp"``: ``_sdpa``, scores materialised (the plain einsum form);
+* ``"blocked"``: ``_sdpa_blocked``, online softmax over key blocks in plain
+  torch, never materialising the (S, T) scores;
+* ``"pallas"``: in the port, the hand-written CUDA flash kernel
+  (``kernels/flash``), through ``flash_ops.flash_attention``, whose backward
+  recomputes through the plain reference as JAX's ``custom_vjp`` does.  On
+  CPU tensors the same route runs the kernel's plain version.  As in JAX,
+  the kernel serves causal attention without M-RoPE; anything else takes
+  the ``"jnp"`` route.
+
+Cross-attention, KV caches and ``attn_decode`` wait for the serving slice
+(ROADMAP item 10e).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                       rms_head_norm, softcap)
+
+NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
+
+
+def init_attn(generator, cfg: ModelConfig, dtype):
+    p = {
+        "wq": dense_init(generator, cfg.d_model, cfg.q_dim, dtype),
+        "wk": dense_init(generator, cfg.d_model, cfg.kv_dim, dtype),
+        "wv": dense_init(generator, cfg.d_model, cfg.kv_dim, dtype),
+        "wo": dense_init(generator, cfg.q_dim, cfg.d_model, dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((cfg.head_dim,), dtype=dtype)
+        p["k_norm"] = torch.ones((cfg.head_dim,), dtype=dtype)
+    return p
+
+
+def _project_qkv(p, cfg: ModelConfig, x, positions):
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_head_norm(p["q_norm"], q)
+        k = rms_head_norm(p["k_norm"], k)
+    if cfg.mrope_sections:
+        if positions.dim() == x.dim() - 1:        # (B,S) -> identical streams
+            positions = positions[None].expand(3, *positions.shape)
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask):
+    """q:(B,S,H,hd) k,v:(B,T,KV,hd) mask:(B,1,S,T) or (1,1,S,T) bool."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    q = q.reshape(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", q, k).to(torch.float32)
+    scores = scores * (hd ** -0.5)
+    scores = softcap(scores, cfg.attn_softcap)
+    scores = torch.where(mask[:, :, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, H, hd)
+
+
+def _sdpa_blocked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int,
+                  block: int = 1024):
+    """Flash-style blocked attention in plain torch: a loop over key blocks
+    with online-softmax running (m, l, acc).  Never materializes the (S,T)
+    score matrix.  Same math as _sdpa to fp32 accuracy."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    bk = min(block, T)
+    if T % bk:
+        raise ValueError(f"blocked attention: T={T} is not a multiple of "
+                         f"the block {bk}")
+    scale = hd ** -0.5
+    qr = q.reshape(B, S, KV, G, hd).to(torch.float32)
+    q_idx = torch.arange(S, device=q.device)
+    m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, S, hd), dtype=torch.float32,
+                      device=q.device)
+    for j in range(T // bk):
+        kblk = k[:, j * bk:(j + 1) * bk].to(torch.float32)
+        vblk = v[:, j * bk:(j + 1) * bk].to(torch.float32)
+        s = torch.einsum("bskgd,btkd->bkgst", qr, kblk) * scale
+        s = softcap(s, cfg.attn_softcap)
+        k_idx = j * bk + torch.arange(bk, device=q.device)
+        mask = torch.ones((S, bk), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (k_idx[None, :] <= q_idx[:, None])
+        if window > 0:
+            mask = mask & ((q_idx[:, None] - k_idx[None, :]) < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = (acc * corr[..., None]
+               + torch.einsum("bkgst,btkd->bkgsd", p, vblk))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.movedim(3, 1)                       # (B,S,KV,G,hd)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _causal_mask(S: int, window: int, device=None):
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    m = j <= i
+    if window > 0:
+        m = m & ((i - j) < window)
+    return m[None]  # (1,S,T)
+
+
+def attn_forward(p, cfg: ModelConfig, x, positions, *, local: bool = False,
+                 causal: bool = True):
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    window = cfg.sliding_window if local else 0
+    if cfg.attn_impl == "pallas" and not cfg.mrope_sections and causal:
+        out = flash_ops.flash_attention(q, k, v, causal=True, window=window,
+                                        softcap=cfg.attn_softcap)
+    elif cfg.attn_impl == "blocked":
+        out = _sdpa_blocked(cfg, q, k, v, causal=causal, window=window)
+    else:
+        if causal:
+            mask = _causal_mask(S, window, x.device)[:, None]    # (1,1,S,T)
+        else:
+            mask = torch.ones((1, 1, S, S), dtype=torch.bool,
+                              device=x.device)
+        out = _sdpa(cfg, q, k, v, mask)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"]

@@ -18,6 +18,8 @@ from repro_torch.kernels.distill import ops as distill_ops
 from repro_torch.kernels.distill import ref as distill_ref
 from repro_torch.kernels.fedagg import ops as fedagg_ops
 from repro_torch.kernels.fedagg import ref as fedagg_ref
+from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.kernels.flash import ref as flash_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -60,6 +62,57 @@ def test_distill_kernel_matches_plain(cuda, N, V, dtype, label_dtype):
     want = distill_ref.kd_loss_rows(s, t, y, T=2.0, alpha=0.3)
     tol = 5e-2 if dtype == torch.bfloat16 else 1e-3
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,dtype,kw", [
+    (2, 128, 4, 2, 64, torch.float32, dict(causal=True)),
+    (1, 256, 4, 1, 128, torch.float32, dict(causal=True, window=32)),
+    (1, 128, 2, 2, 256, torch.float32, dict(causal=True, softcap=30.0)),
+    (2, 64, 2, 2, 32, torch.float32, dict(causal=False)),
+    (1, 17, 4, 2, 8, torch.float32, dict(causal=True)),
+    (1, 200, 4, 2, 16, torch.float32, dict(causal=True, window=70,
+                                           softcap=5.0)),
+    (1, 128, 2, 2, 64, torch.bfloat16, dict(causal=True))])
+def test_flash_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype, kw):
+    """Causal and not, window, softcap, GQA, ragged S, every head size
+    class; tolerances of tests/test_kernels_flash.py."""
+    g = torch.Generator(device=cuda).manual_seed(B * S + hd)
+    q = torch.randn(B * H, S, hd, device=cuda, generator=g).to(dtype)
+    k = torch.randn(B * KV, S, hd, device=cuda, generator=g).to(dtype)
+    v = torch.randn(B * KV, S, hd, device=cuda, generator=g).to(dtype)
+    before = flash_ops.flash_attention_bh.launches
+    got = flash_ops.flash_attention_bh(q, k, v, heads=H, **kw)
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_bh.launches == before + 1
+    want = flash_ref.attention_bh_gqa(q, k, v, heads=H, **kw)
+    tol = (dict(rtol=3e-2, atol=3e-2) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=2e-5))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_flash_vmap_grad_on_card_matches_cpu(cuda):
+    """The member-axis vmap of grad through FlashAttention: one launch on
+    the card, and the same values and gradients as on the CPU."""
+    from torch.func import grad_and_value, vmap
+    C, B, S, H, KV, hd = 3, 2, 40, 4, 2, 16
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn(C, B, S, H, hd, generator=g)
+    k = torch.randn(C, B, S, KV, hd, generator=g)
+    v = torch.randn(C, B, S, KV, hd, generator=g)
+
+    def loss(q, k, v):
+        return (flash_ops.flash_attention(q, k, v, window=12,
+                                          softcap=8.0) ** 2).sum()
+
+    step = vmap(grad_and_value(loss, argnums=(0, 1, 2)))
+    before = flash_ops.flash_attention_bh.launches
+    g_card, v_card = step(q.to(cuda), k.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_ops.flash_attention_bh.launches == before + 1
+    g_cpu, v_cpu = step(q, k, v)
+    torch.testing.assert_close(v_card.cpu(), v_cpu, rtol=1e-4, atol=1e-4)
+    for a, b in zip(g_card, g_cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
 
 
 def test_engine_on_card_matches_cpu(cuda, monkeypatch):
