@@ -11,7 +11,10 @@ Phases, each printing one JSON line:
               the shapes the two main paths give it (and a few more), then
               timed with CUDA events: kernel, plain version, the bound from
               bytes and operations, and a library call where one computes
-              the same function;
+              the same function.  Flash cases name the kernel they took
+              (tensor cores: split-TF32 ``mma.sync`` for fp32, ``wgmma``
+              for bf16; CUDA cores for hd 8-32), distill cases their split
+              count, and two distill calls must give the same bits;
   4. main     Algorithm 1 at the paper's full CNN width (C128-C64-C128-C256-
               C512-D10) on synth-mnist with the 40 Table-III participants,
               four rounds per cluster in one dispatch block, then each slave's
@@ -57,11 +60,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 on the tensor cores
+# fp32 on the tensor cores by split TF32: three TF32 products (495 TFLOP/s
+# dense) for each fp32 one
+TF32X3_FLOPS_PER_S = 495e12 / 3
+PEAK_NAMES = {FP32_FLOPS_PER_S: "fp32 CUDA-core 67 TFLOP/s",
+              BF16_FLOPS_PER_S: "bf16 tensor 989 TFLOP/s",
+              TF32X3_FLOPS_PER_S: "split-TF32 tensor 495/3 = 165 TFLOP/s"}
 L2_BYTES = 50 * 2 ** 20
 ITERS, ITERS_LARGE = 50, 20        # timed calls per measurement
-# fp32 operations the distill kernel does per (student, teacher) logit pair:
+# fp32 operations the distill kernels do per (student, teacher) logit pair:
+# split vocabulary (V > 1024) 2 multiplies by 1/T, 2 max, 3 exp, 3
+# subtracts, 3 adds, 2 multiply-adds, 1 compare; one warp per row (V <= 1024)
 # 2 divides, 3 max, 6 exp, 4 subtracts, 9 multiply-adds, 1 compare
-DISTILL_OPS_PER_LOGIT = 25
+DISTILL_OPS_PER_LOGIT = {"split": 16, "warp-per-row": 25}
 FEDAGG_RTOL, FEDAGG_ATOL = 1e-5, 1e-6
 # tests/test_kernels_flash.py: fp32 and bf16 tolerances of the flash kernel
 FLASH_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (3e-2, 3e-2)}
@@ -157,8 +168,12 @@ def check_distill(torch, ops, ref, dev, N, V, dtype, T=2.0, alpha=0.3):
     t = (torch.randn(N, V, device=dev, generator=g) * 3).to(dtype)
     y = torch.randint(0, V, (N,), device=dev, generator=g, dtype=torch.int32)
     rows = ops.kd_loss_rows(s, t, y, T=T, alpha=alpha)
+    again = ops.kd_loss_rows(s, t, y, T=T, alpha=alpha)
     want_rows = ref.kd_loss_rows(s, t, y, T=T, alpha=alpha)
     torch.cuda.synchronize()
+    if not torch.equal(rows, again):
+        raise AssertionError(f"distill ({N}, {V}, {dtype}): two calls on the "
+                             "same inputs gave different bits")
     got, want = float(rows.mean()), float(want_rows.mean())
     # tests/test_distill.py: 1e-3 relative on the mean in fp32, 5e-2 in bf16
     tol = (5e-2 if dtype == torch.bfloat16 else 1e-3) * max(1.0, abs(want))
@@ -174,12 +189,17 @@ def time_distill(torch, ops, ref, args):
     nbytes = 2 * N * V * s.element_size() + N * y.element_size() + N * 4
     reps = copies(args, nbytes)
     iters = ITERS_LARGE if nbytes > L2_BYTES else ITERS
-    b_ms, b_by = bound(nbytes, DISTILL_OPS_PER_LOGIT * N * V)
+    design = "warp-per-row" if V <= ops.SMALL_V else "split"
+    b_ms, b_by = bound(nbytes, DISTILL_OPS_PER_LOGIT[design] * N * V)
+    splits, chunk = ops.split_plan(N, V)
     return {"ms": time_ms(ops.kd_loss_rows, reps, iters),
             "call_ms": time_ms(ops.kd_loss_rows, reps, iters,
                                device_only=False),
             "plain_ms": time_ms(ref.kd_loss_rows, reps, iters),
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "design": design, "splits": splits, "chunk": chunk,
+            "kernels_per_call": 1 if design == "warp-per-row" else 2,
+            "bit_identical_repeat": True}
 
 
 def attn_pairs(S, causal, window):
@@ -214,7 +234,9 @@ def check_flash(torch, ops, ref, dev, case):
     del got, want
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     flops = 4 * attn_pairs(S, kw["causal"], kw["window"]) * hd * BH
-    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    variant = ops._variant(hd, dtype)
+    peak = (BF16_FLOPS_PER_S if dtype == torch.bfloat16 else
+            TF32X3_FLOPS_PER_S if variant == "tf32x3" else FP32_FLOPS_PER_S)
     b_ms, b_by = bound(nbytes, flops, peak)
     reps = copies((q, k, v), nbytes)
     iters = ITERS_LARGE if nbytes > L2_BYTES else ITERS
@@ -225,13 +247,16 @@ def check_flash(torch, ops, ref, dev, case):
     def plain(q, k, v):
         return ref.attention_bh_gqa(q, k, v, heads=H, **kw)
 
-    out = dict(case, max_abs_err=err, tolerance={"rtol": rtol, "atol": atol},
-               bound_ms=b_ms, bound_by=b_by,
-               peak="bf16 tensor 989 TFLOP/s" if dtype == torch.bfloat16
-               else "fp32 CUDA-core 67 TFLOP/s",
+    out = dict(case, route="simt" if variant == "simt" else "tc",
+               variant=variant,
+               max_abs_err=err, tolerance={"rtol": rtol, "atol": atol},
+               bound_ms=b_ms, bound_by=b_by, peak=PEAK_NAMES[peak],
                ms=time_ms(kernel, reps, iters),
                call_ms=time_ms(kernel, reps, iters, device_only=False),
                plain_ms=time_ms(plain, reps, min(iters, 10)))
+    if dtype == torch.float32:
+        # the bound at the CUDA-core fp32 peak, as the simt kernel had it
+        out["bound_cuda_core_ms"] = bound(nbytes, flops)[0]
     if kw["softcap"] > 0:
         out["library_ms"] = None   # no one PyTorch call applies a softcap
     else:
@@ -413,8 +438,11 @@ def main():
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {n: str(_build.library_path(n).relative_to(ROOT))
                         for n in _build.SOURCES},
+          # each kernel's name, then its registers, shared memory, spills,
+          # and any wgmma serialisation ptxas reports
           "ptxas": {n: [l.strip() for l in log.splitlines()
-                        if "registers" in l or "spill" in l]
+                        if "entry function" in l or "registers" in l
+                        or "spill" in l or "Performance Loss" in l]
                     for n, log in logs.items()}})
 
     # the main paths' engines, set up (host-side Procedure 1 and 2) so the
@@ -485,7 +513,8 @@ def main():
     n_lm_test = len(ltest["tokens"])
     dist_cases = [(n_test, 10, torch.float32), (256, 10, torch.float32),
                   (8, 7000, torch.float32), (n_lm_test, V_lm, torch.float32),
-                  (512, 151_936, torch.float32), (16, 512, torch.bfloat16)]
+                  (512, 151_936, torch.float32), (7, 151_936, torch.float32),
+                  (16, 512, torch.bfloat16)]
     dist_timed = {}
     for N, V, dt in dist_cases:
         args, err = check_distill(torch, d_ops, d_ref, dev, N, V, dt)
@@ -494,7 +523,8 @@ def main():
         del args
     emit({"phase": "kernels", "kernel": "distill",
           "tolerance": "tests/test_distill.py: |mean - plain| < 1e-3 "
-                       "(fp32) or 5e-2 (bf16) times max(1, |plain|)",
+                       "(fp32) or 5e-2 (bf16) times max(1, |plain|); two "
+                       "calls give the same bits",
           "timed": {f"{N}x{V}:{dt}": v
                     for (N, V, dt), v in dist_timed.items()}})
 
@@ -507,10 +537,17 @@ def main():
     C0 = lm_shapes[0][0]
     flash_cases = [
         flash_case("lm_main_member_step", C0 * B, H, H, LM_SEQ, hd),
+        flash_case("lm_main_member_step_bf16", C0 * B, H, H, LM_SEQ, hd,
+                   "bfloat16"),
         flash_case("qwen3-8b_gqa", 1, 32, 8, 2048, 128),
         flash_case("qwen3-8b_gqa_bf16", 1, 32, 8, 2048, 128, "bfloat16"),
+        flash_case("minicpm-2b_hd64", 1, 36, 36, 2048, 64),
+        flash_case("minicpm-2b_hd64_bf16", 1, 36, 36, 2048, 64, "bfloat16"),
         flash_case("gemma2-9b_local", 1, 16, 8, 8192, 256, window=4096,
                    softcap=50.0),
+        flash_case("gemma2-9b_local_bf16", 1, 16, 8, 8192, 256, "bfloat16",
+                   window=4096, softcap=50.0),
+        flash_case("ragged_s300_hd128", 2, 16, 16, 300, 128),
         flash_case("non_causal_hd32", 2, 4, 4, 64, 32, causal=False),
         flash_case("non_causal_hd8", 2, 4, 2, 64, 8, causal=False),
         flash_case("ragged_s17_hd8", 4, 4, 4, 17, 8)]
@@ -754,6 +791,8 @@ def main():
          "replaces": "src/repro/kernels/distill/kernel.py:83",
          "shape": [n_lm_test, V_lm], "launches": lm_launches["distill"],
          "launches_by_path": by_path["distill"],
+         "design": "split vocabulary", "splits": dist["splits"],
+         "kernels_per_call": dist["kernels_per_call"],
          "max_abs_err": dist["max_abs_err"], "ms": dist["ms"],
          "plain_ms": dist["plain_ms"], "bound_ms": dist["bound_ms"],
          "bound_by": dist["bound_by"], "library_ms": dist["library_ms"]},
@@ -762,7 +801,9 @@ def main():
          "replaces": "src/repro/kernels/flash/kernel.py:68",
          "shape": [fl["bh"], fl["S"], fl["hd"]],
          "launches": lm_launches["flash"],
-         "launches_by_path": by_path["flash"],
+         "launches_by_path": by_path["flash"], "variant": fl["variant"],
+         "tensor_cores": fl["route"] == "tc",
+         "bound_cuda_core_ms": fl["bound_cuda_core_ms"], "peak": fl["peak"],
          "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},

@@ -3,8 +3,9 @@
 Each ``kernels/<name>/csrc/<name>.cu`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, under
 ``build/repro_torch/`` at the repository root (listed in ``.gitignore``).
-The library name carries a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is loaded as it is.  ``build()``
+The library name carries a hash of the ``csrc`` directory's files (the
+source and the headers it includes) and the flags, so an edited source
+builds anew and an unchanged one is loaded as it is.  ``build()``
 starts one ``nvcc`` per missing source, all together, and waits for all of
 them.  Nothing here runs at import: the CPU tests import every module.
 """
@@ -40,9 +41,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(SOURCES[name].parent.iterdir()):
+        h.update(f.name.encode() + f.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

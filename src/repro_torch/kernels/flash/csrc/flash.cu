@@ -1,5 +1,15 @@
 // flash: blocked online-softmax attention, forward.
 //
+// One entry point, three kernels: the wrapper (ops.py::_variant) picks one
+// by head size and type, and this file never falls back from one to another.
+//   variant 0, flash_fwd_kernel below: fp32 FMAs on the CUDA cores, for
+//     hd in {8, 16, 32} (test-scale shapes, where it is launch-bound);
+//   variant 1, tc::flash_tf32x3_kernel (flash_tc.cuh): fp32 inputs at hd in
+//     {64, 128, 256} on the tensor cores, split TF32 with mma.sync;
+//   variant 2, tc::flash_wgmma_kernel (flash_tc.cuh): bf16 inputs at hd in
+//     {64, 128, 256}, wgmma.
+// The note below describes variant 0; flash_tc.cuh describes 1 and 2.
+//
 // Replaces the TPU kernel src/repro/kernels/flash/kernel.py::flash_attention_bh
 // (body _flash_kernel at :24, pl.pallas_call at :103; wrapper ops.py, whose
 // custom_vjp at :55-82 recomputes the backward through a jnp reference).
@@ -12,12 +22,11 @@
 // the grouped-query row map r(b) = (b / H) * KV + (b % H) / (H / KV), so K/V
 // are never repeated.
 //
-// What bounds it on an H100: at the LM shapes (S 256-8192, hd 128-256) the
-// work is 4 * S^2 * hd operations per row of heads (half under causality)
-// against 4 * S * hd values moved, so operations bound it: 67 TFLOP/s in fp32
-// on the CUDA cores, or 989 TFLOP/s in bf16 on the tensor cores.  This first
-// design is the simple, exact one: fp32 FMAs on the CUDA cores, no tensor
-// cores, no TMA and no overlap of copies with compute (all later work).  One
+// What bounds it on an H100: the work is 4 * S^2 * hd operations per row of
+// heads (half under causality) against 4 * S * hd values moved.  At the LM
+// shapes (S 256-8192, hd 64-256) that is the tensor-core kernels' work
+// (flash_tc.cuh).  Variant 0 serves hd 8-32 at test-scale S, where launches
+// bound it; it is the simple, exact design: fp32 FMAs on the CUDA cores.  One
 // block of 256 threads owns a 64-row query tile of one head row.  It keeps the
 // query tile in shared memory and walks the 64-key tiles: the key tile is
 // staged, each thread scores a 4 x 4 patch of the 64 x 64 tile from shared
@@ -29,13 +38,13 @@
 // causality or the window mask wholly are skipped: exact, since each row's own
 // key is always visited, and a masked score then contributes exp(-2^30 - m),
 // which is 0.  A ragged last tile is masked here (keys past S contribute
-// nothing, queries past S are not written), so S need not divide by 64.  At
-// hd 256 the tiles take 148 KB of the 227 KB of shared memory a block may opt
-// into (cudaFuncSetAttribute).
+// nothing, queries past S are not written), so S need not divide by 64.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -243,15 +252,6 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 32:
       return launch<T, 32>(q, k, v, o, BH, H, KV, S, scale, causal, window,
                            softcap, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, BH, H, KV, S, scale, causal, window,
-                           softcap, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, BH, H, KV, S, scale, causal, window,
-                            softcap, st);
-    case 256:
-      return launch<T, 256>(q, k, v, o, BH, H, KV, S, scale, causal, window,
-                            softcap, st);
     default:
       return cudaErrorInvalidValue;
   }
@@ -260,23 +260,32 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (BH, S, hd), k and v (BH / H * KV, S, hd), o (BH, S, hd), all contiguous,
-// of one type: dtype 0 = fp32, 1 = bf16.  hd in {8, 16, 32, 64, 128, 256}.
-// H = KV = 1 is the identity row map.  Returns cudaGetLastError() after the
-// launch.
+// of one type: dtype 0 = fp32, 1 = bf16.  variant 0 takes hd in {8, 16, 32}
+// and either type; variant 1 fp32 and variant 2 bf16, both at hd in {64, 128,
+// 256}.  H = KV = 1 is the identity row map.  Returns cudaGetLastError()
+// after the launch, or cudaErrorInvalidValue for a variant that does not
+// take these inputs.
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, int BH, int H, int KV, int S, int hd,
                                 float scale, int causal, int window,
-                                float softcap, int dtype, void* stream) {
+                                float softcap, int dtype, int variant,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || S <= 0 || H <= 0 || KV <= 0 || H % KV)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      dtype == 0
-          ? dispatch_hd<float>(hd, q, k, v, o, BH, H, KV, S, scale, causal,
-                               window, softcap, st)
-      : dtype == 1
-          ? dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, BH, H, KV, S, scale,
-                                       causal, window, softcap, st)
-          : cudaErrorInvalidValue;
+  const bool tc_hd = hd == 64 || hd == 128 || hd == 256;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (variant == 0 && !tc_hd && dtype == 0)
+    err = dispatch_hd<float>(hd, q, k, v, o, BH, H, KV, S, scale, causal,
+                             window, softcap, st);
+  else if (variant == 0 && !tc_hd && dtype == 1)
+    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, BH, H, KV, S, scale,
+                                     causal, window, softcap, st);
+  else if (variant == 1 && tc_hd && dtype == 0)
+    err = tc::dispatch_tf32x3(hd, q, k, v, o, BH, H, KV, S, scale, causal,
+                              window, softcap, st);
+  else if (variant == 2 && tc_hd && dtype == 1)
+    err = tc::dispatch_wgmma(hd, q, k, v, o, BH, H, KV, S, scale, causal,
+                             window, softcap, st);
   return (int)err;
 }

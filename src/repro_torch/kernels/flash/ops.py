@@ -2,9 +2,10 @@
 
 ``flash_attention_bh`` is the kernel's wrapper on head-flattened tensors,
 q: (B·H, S, hd), k, v: (B·KV, S, hd).  A CPU tensor goes to the plain
-version (``ref.attention_bh_gqa``); a CUDA tensor goes to the kernel, or
-the call raises.  ``flash_attention_bh.launches`` counts the kernel's
-launches.
+version (``ref.attention_bh_gqa``); a CUDA tensor goes to the kernel that
+``_variant`` names for its head size and dtype, or the call raises (there is
+no fallback from one kernel to another).  ``flash_attention_bh.launches``
+counts the launches, one per call.
 
 ``flash_attention`` takes the model layout, q: (B, S, H, hd), k, v:
 (B, S, KV, hd), through ``FlashAttention``, a ``torch.autograd.Function``
@@ -32,10 +33,25 @@ from repro_torch.kernels.flash import ref
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-BLOCK_Q = 64                  # query rows per thread block (csrc/flash.cu)
+TC_HEAD_DIMS = (64, 128, 256)
+# the C entry point's variant numbers (csrc/flash.cu)
+VARIANTS = {"simt": 0, "tf32x3": 1, "wgmma": 2}
+BLOCK_Q = 64                  # the fewest query rows a thread block takes
+
+
+def _variant(hd: int, dtype) -> str:
+    """The kernel a CUDA call takes: ``"simt"`` (fp32 FMAs on the CUDA cores)
+    for hd 8-32; on the tensor cores for hd 64-256, ``"tf32x3"`` (split-TF32
+    ``mma.sync``) for fp32 and ``"wgmma"`` for bf16."""
+    if hd not in HEAD_DIMS or dtype not in _DTYPES:
+        raise ValueError(f"flash: no kernel for hd {hd} in {dtype}")
+    if hd not in TC_HEAD_DIMS:
+        return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def flash_attention_bh(q, k, v, *, causal: bool = True, window: int = 0,
@@ -83,6 +99,11 @@ def flash_attention_bh(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"flash: {BH} rows x {n_q} tiles out of range")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash: q, k, v must be contiguous")
+    variant = _variant(hd, q.dtype)
+    if variant == "wgmma" and (BH * S >= 2 ** 31 or any(
+            t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("flash: the bf16 kernel's tensor maps take q, k, v "
+                         "at 16-byte-aligned addresses and B·H·S < 2^31")
     sm_scale = hd ** -0.5 if sm_scale is None else sm_scale
     fn = _build.kernel_fn("flash", "flash_fwd_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
@@ -91,7 +112,7 @@ def flash_attention_bh(q, k, v, *, causal: bool = True, window: int = 0,
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), BH, H, KV, S, hd, sm_scale,
                         int(causal), int(window), softcap, _DTYPES[q.dtype],
-                        stream), "flash")
+                        VARIANTS[variant], stream), "flash")
     flash_attention_bh.launches += 1
     return out
 

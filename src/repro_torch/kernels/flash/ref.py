@@ -112,3 +112,49 @@ def ref_gqa_vjp(q, k, v, g, *, causal: bool = True, window: int = 0,
     dk = torch.einsum("bkgst,bskgd->btkd", ds, qr)
     return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def round_tf32(x):
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: integer ops on the bits
+    (add half of the dropped 13 bits to the magnitude, clear them)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
+def _mm_tf32(a, b, terms):
+    """``a @ b`` as the fp32 tensor-core kernel takes it: each operand split
+    into TF32 hi + lo and the product lo·hi + hi·lo + hi·hi (``terms=3``),
+    or plain TF32, hi·hi alone (``terms=1``)."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    if terms == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def attention_bh_split_tf32(q, k, v, *, causal: bool = True,
+                            window: int = 0, softcap: float = 0.0,
+                            sm_scale: float | None = None,
+                            heads: int | None = None, terms: int = 3):
+    """``attention_bh_gqa`` with both products in the arithmetic of the fp32
+    tensor-core kernel (``csrc/flash_tc.cuh``): split-TF32 (``terms=3``) or
+    plain TF32 (``terms=1``) operands, fp32 sums, the softmax unnormalised
+    until the end.  A model of the kernel's arithmetic for the tests;
+    nothing on the main path calls it."""
+    hd = q.shape[-1]
+    sm_scale = hd ** -0.5 if sm_scale is None else sm_scale
+    rows = kv_rows(q.shape[0], k.shape[0], heads, q.device)
+    q, k, v = (x.to(torch.float32) for x in (q, k[rows], v[rows]))
+    s = _mm_tf32(q, k.transpose(1, 2), terms) * sm_scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    s = torch.where(mask[None], s, NEG)
+    p = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+    return _mm_tf32(p, v, terms) / p.sum(dim=-1, keepdim=True)

@@ -64,6 +64,28 @@ def test_distill_kernel_matches_plain(cuda, N, V, dtype, label_dtype):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_distill_split_vocabulary_matches_plain_and_repeats_bits(cuda, dtype):
+    """Three rows of qwen's 151,936 logits, split over 176 blocks each:
+    against the plain version, and two calls give the same bits (the
+    chunks merge in a fixed order)."""
+    N, V = 3, 151_936
+    assert distill_ops.split_plan(N, V)[0] > 1
+    g = torch.Generator(device=cuda).manual_seed(V)
+    s = (torch.randn(N, V, device=cuda, generator=g) * 3).to(dtype)
+    t = (torch.randn(N, V, device=cuda, generator=g) * 3).to(dtype)
+    y = torch.randint(0, V, (N,), device=cuda, generator=g)
+    before = distill_ops.kd_loss_rows.launches
+    got = distill_ops.kd_loss_rows(s, t, y, T=2.0, alpha=0.3)
+    again = distill_ops.kd_loss_rows(s, t, y, T=2.0, alpha=0.3)
+    torch.cuda.synchronize()
+    assert distill_ops.kd_loss_rows.launches == before + 2
+    assert torch.equal(got, again)
+    want = distill_ref.kd_loss_rows(s, t, y, T=2.0, alpha=0.3)
+    tol = 5e-2 if dtype == torch.bfloat16 else 1e-3
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("B,S,H,KV,hd,dtype,kw", [
     (2, 128, 4, 2, 64, torch.float32, dict(causal=True)),
     (1, 256, 4, 1, 128, torch.float32, dict(causal=True, window=32)),
@@ -72,10 +94,22 @@ def test_distill_kernel_matches_plain(cuda, N, V, dtype, label_dtype):
     (1, 17, 4, 2, 8, torch.float32, dict(causal=True)),
     (1, 200, 4, 2, 16, torch.float32, dict(causal=True, window=70,
                                            softcap=5.0)),
-    (1, 128, 2, 2, 64, torch.bfloat16, dict(causal=True))])
+    (1, 128, 2, 2, 64, torch.bfloat16, dict(causal=True)),
+    # the tensor-core kernels: bf16 (wgmma) with window and softcap, fp32
+    # (split TF32) at ragged S 300, and GQA on both
+    (1, 256, 2, 2, 128, torch.bfloat16, dict(causal=True, window=100,
+                                             softcap=30.0)),
+    (1, 256, 2, 1, 256, torch.bfloat16, dict(causal=True, window=90,
+                                             softcap=50.0)),
+    (1, 300, 2, 2, 64, torch.float32, dict(causal=True)),
+    (1, 300, 2, 2, 128, torch.float32, dict(causal=True)),
+    (1, 300, 2, 2, 256, torch.float32, dict(causal=True)),
+    (2, 192, 8, 2, 128, torch.float32, dict(causal=True)),
+    (2, 192, 8, 2, 128, torch.bfloat16, dict(causal=False))])
 def test_flash_kernel_matches_plain(cuda, B, S, H, KV, hd, dtype, kw):
     """Causal and not, window, softcap, GQA, ragged S, every head size
-    class; tolerances of tests/test_kernels_flash.py."""
+    class and both tensor-core kernels; tolerances of
+    tests/test_kernels_flash.py."""
     g = torch.Generator(device=cuda).manual_seed(B * S + hd)
     q = torch.randn(B * H, S, hd, device=cuda, generator=g).to(dtype)
     k = torch.randn(B * KV, S, hd, device=cuda, generator=g).to(dtype)
