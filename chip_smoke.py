@@ -24,10 +24,24 @@ Phases, each printing one JSON line:
               every non-empty cluster, distill once per trained slave;
   4b. profile the same training again, warm, on the host clock and under
               torch.profiler: device time by kernel and the busy share;
+  4c. sim_main the heterogeneity simulator (``repro_torch.sim``) on the
+              same federation at full width under a seeded "mixed" trace:
+              8 rounds, MAR policy "buffer", dispatch blocks of up to 4
+              rounds; run twice, cold and warm.  fedagg must launch the
+              count the records imply (``expected_fedagg_launches``), and
+              each kernel shape of the run is held against its plain version;
+  4d. sim_legacy the same simulation on the one-round path (R = 1): every
+              record's host fields equal sim_main's, no fedagg launch;
   5. cli      ``repro_torch.launch.fl_train`` on the card;
   6. parity   a small CNN federation on the card (deterministic cuDNN) and on
               the CPU from the same initial weights; the final planes must
               agree;
+  6b. sim_parity small simulations ("buffer" at R = 2, "mask" at R = 1) on
+              the card and on the CPU: equal host fields, losses and final
+              planes within the parity tolerance, accuracies within one
+              test sample;
+  6c. sim_cli ``repro_torch.launch.sim_run`` in a subprocess with every
+              observability output, checked by ``repro_torch.obs.validate``;
   7. lm_main  Algorithm 1 on the LM family at full OLMo-1B width (two of its
               16 layers), token-only data, attention on the flash kernel:
               master FedAvg and a slave under KD through the dispatch path,
@@ -51,6 +65,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -80,6 +95,10 @@ PARITY_RTOL, PARITY_ATOL = 2e-4, 1e-5
 # the LM card-vs-CPU check: the same fp32 tolerance as the CNN's
 LM_PARITY_RTOL, LM_PARITY_ATOL = 2e-4, 1e-5
 LM_PARTICIPANTS, LM_CORPUS_TOKENS, LM_SEQ = 14, 12_000, 256
+# the simulator's main path: the CNN federation of phase 4 under a trace
+SIM_ROUNDS, SIM_TRACE_SEED = 8, 3
+SIM_HOST_FIELDS = ("level", "time", "active", "dropped", "offline", "masked",
+                   "violations", "banked", "unselected", "flushed", "bytes")
 
 
 def emit(obj):
@@ -392,6 +411,71 @@ def check_finite(torch, eng, block_losses, kd_report):
         raise AssertionError(f"non-finite distillation loss {kd_report}")
 
 
+# ------------------------------------------------------------------ simulator
+def sim_host_rows(report):
+    """Every record's host fields (numpy float64 arithmetic on the host):
+    the part of the telemetry that must be equal, not close."""
+    return [(r.round, r.t_start, r.duration, list(r.events),
+             [tuple(getattr(c, f) for f in SIM_HOST_FIELDS)
+              for c in r.clusters]) for r in report.rows]
+
+
+def expected_fedagg_launches(rows, terminal, compressions, banked):
+    """The fedagg launches a simulator run on the dispatch path implies,
+    from its records ``rows`` (``SimReport.rows``):
+    - each round of a cluster that dispatched (a live member, or a banked
+      one) aggregates its member plane once, and once more to merge the
+      bank when its block carries one (``banked``: FLConfig(aggregation=
+      "buffered") gives every block a bank);
+    - each round in which no member was live but ripe bank entries
+      flushed ran one anchored flush (one contraction over the entries);
+    - the terminal flush runs once per level with entries left
+      (``terminal``: level -> entries; it adds them to that level's last
+      record, which is taken off again here);
+    - each bank compression (``agg/bank_compressions``) runs once.
+    The one-round path (R = 1) aggregates parameter trees: no launch."""
+    last = {c.level: r.round for r in rows for c in r.clusters}
+    n = 0
+    for r in rows:
+        for c in r.clusters:
+            live = bool(c.active)
+            if live or c.banked:
+                n += 2 if banked else 1
+            flushed = c.flushed - (terminal.get(c.level, 0)
+                                   if r.round == last[c.level] else 0)
+            if not live and flushed > 0:
+                n += 1
+    return n + len(terminal) + compressions
+
+
+def sim_classes(srv, HeterogeneitySim):
+    """Engine and simulator that record what the launch count and the
+    kernel checks need: the (rows, D_pad) shapes fedagg is given (member
+    and bank planes of each block, and the anchored flushes' entries), and
+    the entries the terminal flush merged per level."""
+
+    class ShapeFedRAC(srv.FedRAC):
+        def setup(self):
+            self.fedagg_shapes = set()
+            return super().setup()
+
+        def dispatch_rounds(self, level, members, *args, **kw):
+            self.fedagg_shapes.add((self._capacity(len(members)),
+                                    self.plane_spec(level).d_pad))
+            return super().dispatch_rounds(level, members, *args, **kw)
+
+    class CountingSim(HeterogeneitySim):
+        def _anchored_merge_plane(self, cur, entries, r, lvl):
+            self.fl.fedagg_shapes.add((len(entries), cur.shape[0]))
+            return super()._anchored_merge_plane(cur, entries, r, lvl)
+
+        def _terminal_flush(self, params, rounds, report, merge=None):
+            self.terminal = {l: len(e) for l, e in self._bank.items() if e}
+            super()._terminal_flush(params, rounds, report, merge)
+
+    return ShapeFedRAC, CountingSim
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -410,6 +494,9 @@ def main():
     from repro_torch.kernels.fedagg import ops as f_ops, ref as f_ref
     from repro_torch.kernels.flash import ops as a_ops, ref as a_ref
     from repro_torch.launch import fl_train
+    from repro_torch.obs import make_observability
+    from repro_torch.obs import validate as obs_validate
+    from repro_torch.sim import HeterogeneitySim, SimConfig, make_trace
 
     def zero_counts():
         f_ops.weighted_aggregate.launches = 0
@@ -609,6 +696,127 @@ def main():
     emit(dict({"phase": "profile"},
               **profile_train(torch, eng, test, ("fedagg",))))
 
+    # 4c. the simulator's main path, full width ---------------------------
+    ShapeFedRAC, CountingSim = sim_classes(srv, HeterogeneitySim)
+
+    def simulate(R, where="cuda", n_part=40, samples=2400, width=1.0,
+                 policy="buffer", rounds=SIM_ROUNDS, eval_every=4,
+                 compact_to=4):
+        """One simulator run on a fresh engine (trace events mutate the
+        participants and the assignment); counts set to 0 just before
+        ``sim.run`` and read just after."""
+        p, c, tst = federation(n_part, samples, 3)
+        e = ShapeFedRAC(p, c, cnn_family(base_width=width), srv.FLConfig(
+            rounds_per_dispatch=R, staleness_discount=0.6,
+            aggregation="buffered" if policy == "buffer" else "sync",
+            compact_to=compact_to, seed=3), classes=10, device=where).setup()
+        members0 = {str(l): len(v) for l, v in e.assignment.members.items()}
+        sim = CountingSim(e, make_trace("mixed", n_part, rounds,
+                                        seed=SIM_TRACE_SEED),
+                          SimConfig(rounds=rounds, mar_policy=policy,
+                                    schedule="parallel",
+                                    eval_every=eval_every),
+                          obs=make_observability(trace=False))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        rep = sim.run(tst)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return {"eng": e, "sim": sim, "report": rep, "seconds": secs,
+                "n_test": len(tst["y"]),
+                "launches": read_counts(), "members": members0,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+    def check_sim(run, banked):
+        """Launch counts as the records imply, one build per program,
+        finite losses and planes."""
+        e, sim, rep = run["eng"], run["sim"], run["report"]
+        comp = int(sim.obs.registry.counter("agg/bank_compressions").value)
+        want = {"fedagg": expected_fedagg_launches(rep.rows, sim.terminal,
+                                                   comp, banked)
+                if e.cfg.rounds_per_dispatch > 1 else 0,
+                "distill": 0, "flash": 0}
+        if run["launches"] != want:
+            raise AssertionError(f"simulator launches {run['launches']}, "
+                                 f"expected {want}")
+        stats = e.compile_stats()
+        if not stats or set(stats.values()) != {1}:
+            raise AssertionError(f"programs built more than once: {stats}")
+        for r in rep.rows:
+            for c in r.clusters:
+                if c.active and not math.isfinite(c.mean_loss):
+                    raise AssertionError(f"round {r.round} cluster "
+                                         f"{c.level}: loss {c.mean_loss}")
+        for l, p in sim.params.items():
+            if not bool(torch.isfinite(e.plane_of(l, p)).all()):
+                raise AssertionError(f"simulated level {l} ended with a "
+                                     "non-finite plane")
+        return {"launches": run["launches"], "expected_launches": want,
+                "terminal_flush_entries": {str(l): n for l, n
+                                           in sim.terminal.items()},
+                "bank_compressions": comp, "programs": len(stats),
+                "builds_per_program": sorted(set(stats.values()))}
+
+    sim_runs = {w: simulate(4) for w in ("cold", "warm")}
+    sim_checks = {w: check_sim(r, banked=True) for w, r in sim_runs.items()}
+    sim_rep = sim_runs["cold"]["report"]
+    if sim_host_rows(sim_runs["warm"]["report"]) != sim_host_rows(sim_rep):
+        raise AssertionError("two simulator runs of one trace disagree on "
+                             "the host telemetry")
+    sim_sum = sim_rep.summary()
+    banked_rounds = sum(1 for r in sim_rep.rows for c in r.clusters
+                        if c.banked)
+    if not (banked_rounds and sim_sum["flushed_total"]):
+        raise AssertionError(f"trace seed {SIM_TRACE_SEED} gives no banked "
+                             f"block or no flush: {sim_sum}")
+    sim_shapes = sorted(sim_runs["cold"]["eng"].fedagg_shapes
+                        | sim_runs["warm"]["eng"].fedagg_shapes)
+    sim_fed_err = {f"{C}x{D}": check_fedagg(torch, f_ops, f_ref, dev, C,
+                                            D)[2] for C, D in sim_shapes}
+    emit({"phase": "sim_main", "config": {
+              "family": "cnn_family(base_width=1.0)", "participants": 40,
+              "samples": 2400, "rounds": SIM_ROUNDS, "rounds_per_dispatch": 4,
+              "aggregation": "buffered", "staleness_discount": 0.6,
+              "compact_to": 4, "mar_policy": "buffer",
+              "schedule": "parallel", "eval_every": 4,
+              "trace": f"make_trace('mixed', 40, {SIM_ROUNDS}, "
+                       f"seed={SIM_TRACE_SEED})"},
+          "cut": {"rounds": SIM_ROUNDS, "trace": "synthetic, seeded",
+                  "data": "synth-mnist (synthetic)",
+                  "weights": "random, seeded"},
+          "members_at_start": sim_runs["cold"]["members"],
+          "sim_run_seconds": {w: r["seconds"] for w, r in sim_runs.items()},
+          "peak_mem_bytes": {w: r["peak_mem_bytes"]
+                             for w, r in sim_runs.items()},
+          "simulated_wall_clock_s_host_arithmetic": sim_sum["wall_clock_s"],
+          "participation_rate": sim_sum["participation_rate"],
+          "mar_violations": sim_sum["mar_violations"],
+          "banked_total": sim_sum["banked_total"],
+          "flushed_total": sim_sum["flushed_total"],
+          "banked_cluster_rounds": banked_rounds,
+          "final_acc": sim_sum["final_acc"],
+          "events": sum(len(r.events) for r in sim_rep.rows),
+          "fedagg_shapes_max_abs_err": sim_fed_err,
+          "fedagg_tolerance": {"rtol": FEDAGG_RTOL, "atol": FEDAGG_ATOL},
+          "checks": sim_checks})
+
+    # 4d. the same simulation on the one-round path -------------------------
+    legacy = simulate(1)
+    legacy_check = check_sim(legacy, banked=True)
+    if sim_host_rows(legacy["report"]) != sim_host_rows(sim_rep):
+        raise AssertionError("one-round and dispatch simulator runs differ "
+                             "in host telemetry")
+    emit({"phase": "sim_legacy", "sim_run_seconds": legacy["seconds"],
+          "peak_mem_bytes": legacy["peak_mem_bytes"],
+          "host_fields_equal_sim_main": True,
+          "final_acc": legacy["report"].summary()["final_acc"],
+          "checks": legacy_check})
+    for r in list(sim_runs.values()) + [legacy]:
+        del r["eng"], r["sim"]
+    torch.cuda.empty_cache()
+
     # 5. cli --------------------------------------------------------------
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -650,6 +858,88 @@ def main():
     emit({"phase": "parity", "tolerance": {"rtol": PARITY_RTOL,
                                            "atol": PARITY_ATOL},
           "levels": parity})
+
+    # 6b. the simulator, card == CPU --------------------------------------
+    sim_parity = {}
+    for policy, R in (("buffer", 2), ("mask", 1)):
+        runs = {w: simulate(R, w, n_part=10, samples=600, width=0.125,
+                            policy=policy, rounds=4, eval_every=2,
+                            compact_to=2) for w in ("cpu", "cuda")}
+        cpu, card = runs["cpu"]["report"], runs["cuda"]["report"]
+        if sim_host_rows(card) != sim_host_rows(cpu):
+            raise AssertionError(f"sim_parity {policy}: host fields differ")
+        n_sim_test = runs["cpu"]["n_test"]
+        share, acc_gap = 0.0, 0.0
+        for rc, rg in zip(cpu.rows, card.rows):
+            for cc, cg in zip(rc.clusters, rg.clusters):
+                if math.isfinite(cc.mean_loss) != math.isfinite(cg.mean_loss):
+                    raise AssertionError(f"sim_parity {policy}: loss "
+                                         f"{cg.mean_loss} vs {cc.mean_loss}")
+                if math.isfinite(cc.mean_loss):
+                    share = max(share, abs(cg.mean_loss - cc.mean_loss)
+                                / (PARITY_ATOL + PARITY_RTOL
+                                   * abs(cc.mean_loss)))
+                if cc.acc is not None:
+                    acc_gap = max(acc_gap, abs(cg.acc - cc.acc))
+        for l, a in cpu.final_acc.items():
+            acc_gap = max(acc_gap, abs(card.final_acc[l] - a))
+        for l in runs["cpu"]["sim"].params:
+            pc = runs["cpu"]["eng"].plane_of(
+                l, runs["cpu"]["sim"].params[l]).cpu()
+            pg = runs["cuda"]["eng"].plane_of(
+                l, runs["cuda"]["sim"].params[l]).cpu()
+            torch.testing.assert_close(pg, pc, rtol=PARITY_RTOL,
+                                       atol=PARITY_ATOL)
+            share = max(share, float(((pg - pc).abs() / (
+                PARITY_ATOL + PARITY_RTOL * pc.abs())).max()))
+        if not share <= 1.0:
+            raise AssertionError(f"sim_parity {policy}: losses outside the "
+                                 f"tolerance (worst share {share})")
+        if acc_gap > 1.0 / n_sim_test + 1e-9:
+            raise AssertionError(f"sim_parity {policy}: accuracy gap "
+                                 f"{acc_gap} > one of {n_sim_test} samples")
+        if runs["cpu"]["launches"]["fedagg"] != 0:
+            raise AssertionError("the CPU simulator launched a kernel")
+        sim_parity[f"{policy}_R{R}"] = {
+            "worst_share_of_tolerance": share, "max_acc_gap": acc_gap,
+            "card_fedagg_launches": runs["cuda"]["launches"]["fedagg"]}
+    emit({"phase": "sim_parity", "tolerance": {"rtol": PARITY_RTOL,
+                                               "atol": PARITY_ATOL},
+          "accuracy_tolerance": "one test sample", "runs": sim_parity})
+
+    # 6c. the simulator's launcher, with its observability outputs -------
+    out_dir = ROOT / "build" / "chip_smoke" / "sim_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    outs = {k: out_dir / f for k, f in (("metrics", "metrics.jsonl"),
+                                        ("trace", "trace.json"),
+                                        ("report", "report.json"))}
+    cmd = [sys.executable, "-m", "repro_torch.launch.sim_run", "--trace",
+           "mixed", "--mar-policy", "buffer", "--rounds-per-dispatch", "4",
+           "--rounds", "4", "--participants", "8", "--samples", "600",
+           "--base-width", "0.125", "--json", "--metrics-out",
+           str(outs["metrics"]), "--trace-out", str(outs["trace"]),
+           "--report-out", str(outs["report"]), "--fence"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [x for x in [os.environ.get("PYTHONPATH")]
+                               if x]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          env=env, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"sim_run exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    metrics = obs_validate.validate_metrics_jsonl(outs["metrics"])
+    trace_ok = obs_validate.validate_trace(outs["trace"],
+                                           coverage_root="sim.run",
+                                           min_coverage=0.95)
+    totals = obs_validate.check_summary_parity(metrics, outs["report"])
+    emit({"phase": "sim_cli", "seconds": cli_s, "exit_code": proc.returncode,
+          "sim_run_span_coverage": trace_ok["coverage"],
+          "trace_events": trace_ok["events"],
+          "metrics_lines": metrics["lines"], "summary_parity": totals,
+          "summary": json.loads(proc.stdout.strip().splitlines()[-1])[
+              "summary"]})
 
     # 7. LM main path, OLMo-1B width --------------------------------------
     torch.cuda.empty_cache()
@@ -777,6 +1067,8 @@ def main():
     fl = flash_timed["lm_main_member_step"]
     by_path = {k: {"cnn_main": cnn_launches[k], "lm_main": lm_launches[k]}
                for k in cnn_launches}
+    by_path["fedagg"]["sim_main"] = sim_runs["cold"]["launches"]["fedagg"]
+    by_path["fedagg"]["sim_legacy"] = legacy["launches"]["fedagg"]
     emit({"kernels": [
         {"name": "fedagg", "route": "cuda",
          "source": "src/repro_torch/kernels/fedagg/csrc/fedagg.cu",

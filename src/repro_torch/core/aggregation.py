@@ -64,13 +64,20 @@ def merge_buffered_plane(partial_plane, bank_plane, bank_weights):
 
 
 # ------------------------------------------------------------ buffered async
-def compress_bank_rows(rows: list, us: list, cap: int):
+def compress_bank_rows(rows: list, us: list, cap: int, *, obs=None):
     """Fit a banked backlog into ``cap`` carry slots: when there are more
     rows than slots, all rows compress into ONE weighted-average row.  The
     total sum(u) and sum(u * p) are kept, so a later merge, which sees only
-    those, is unchanged.  Returns (rows, us) untouched when they fit."""
+    those, is unchanged.  Returns (rows, us) untouched when they fit.
+
+    ``obs``: optional Observability bundle; counts each compression and
+    the rows it folded (``agg/bank_compressions``,
+    ``agg/bank_rows_compressed``)."""
     if len(rows) <= cap:
         return rows, us
+    if obs is not None and obs.on:
+        obs.registry.counter("agg/bank_compressions").inc()
+        obs.registry.counter("agg/bank_rows_compressed").inc(len(rows))
     u = torch.as_tensor(us, dtype=torch.float32, device=rows[0].device)
     total = float(u.sum())
     return [aggregate_plane(torch.stack(rows), u / total)], [total]
@@ -101,9 +108,14 @@ def anchored_merge_weights(anchor_weight: float, us) -> tuple[float, list]:
     return float(anchor_weight) / total, [float(u) / total for u in us]
 
 
-def merge_buffered(partial, contribs, norm_weights):
+def merge_buffered(partial, contribs, norm_weights, *, obs=None):
     """Fold banked contributions (pytrees, weights normalized by the total
-    of live and buffered weight) into a partial FedAvg sum."""
+    of live and buffered weight) into a partial FedAvg sum.  ``obs``
+    (optional Observability bundle) counts merges and rows
+    (``agg/bank_merges``, ``agg/bank_rows_merged``)."""
+    if obs is not None and obs.on and contribs:
+        obs.registry.counter("agg/bank_merges").inc()
+        obs.registry.counter("agg/bank_rows_merged").inc(len(contribs))
     out = partial
     for p, nw in zip(contribs, norm_weights):
         w = float(nw)

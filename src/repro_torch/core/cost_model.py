@@ -10,6 +10,8 @@ the paper.
 """
 from __future__ import annotations
 
+import numpy as np
+
 from repro_torch.core.resources import Participant
 
 GFLOPS_PER_GHZ = 8.0      # effective flops per cycle (SIMD MAC units)
@@ -33,6 +35,30 @@ def round_time(p: Participant, flops_per_sample: float, model_bytes: float,
     transient device conditions (simulated straggler spikes)."""
     return (train_time(p, flops_per_sample, E, n_i) * compute_slowdown
             + comm_time(p, model_bytes))
+
+
+def train_time_vec(s: np.ndarray, flops_per_sample, E, n,
+                   compute_slowdown=1.0) -> np.ndarray:
+    """Vectorized T_i^a · E over participant arrays; every argument
+    broadcasts, constants identical to ``train_time``."""
+    return (flops_per_sample * n * E * compute_slowdown
+            / (s * GFLOPS_PER_GHZ * 1e9 * EFFICIENCY))
+
+
+def comm_time_vec(r: np.ndarray, model_bytes) -> np.ndarray:
+    return model_bytes * 8.0 / (r * 1e6)
+
+
+def round_bytes(model_bytes: float, *, download: bool = True,
+                upload: bool = True) -> float:
+    """Per-participant traffic in one round: WPM down + WPM up (§III-B).
+    A deadline-dropped participant still burned its download."""
+    return model_bytes * (float(download) + float(upload))
+
+
+def total_time_sync(times: np.ndarray, rounds: int) -> float:
+    """Eq. 2: per-round time is the straggler's; total = R · max_i T_i."""
+    return float(rounds * np.max(times))
 
 
 def mar_parallel(T_m: float, kappa: float, m: int) -> float:

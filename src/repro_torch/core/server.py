@@ -19,13 +19,21 @@ pytree; its first leaf's leading axis is the shard length), and
 slice into the family's batch.  The defaults serve ``{"x", "y"}`` data; a
 token-only LM federation overrides them.
 
+The buffered schedule (``FLConfig(aggregation="buffered")``) folds banked
+late updates into the FedAvg: ``cluster_round(buffered=...)`` on the
+one-round path, and on the dispatch path a bank (rows, weights, gain) that
+rides the block's round loop, merged into each round's FedAvg by the fedagg
+kernel.  A dispatch block takes a fixed KD teacher or an (R, D_master)
+stack of per-round teacher planes (the simulator's path).  ``self.obs``
+(``NULL_OBS`` unless set) counts transfers, blocks and program builds and
+traces the block and pack spans, as in the JAX package.
+
 Everything runs on ``device``: ``cuda`` unless the caller asks for ``cpu``.
-Not ported yet: meshes and tensor parallelism, the buffered schedule and
-bank carries, per-round teacher planes, delta shard packs, the per-pid
-reference loop and the observability hooks.
+Not ported yet: meshes and tensor parallelism (ROADMAP item 11).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable
@@ -36,13 +44,15 @@ from torch.func import vmap
 
 from repro_torch.core import aggregation, assignment as asg, clustering
 from repro_torch.core import compaction, cost_model, rounds as rnd
-from repro_torch.core.client import make_cluster_update
+from repro_torch.core.client import local_update, make_cluster_update
 from repro_torch.core.plane import make_plane_spec
 from repro_torch.core.resources import (LAMBDA_PAPER, Fleet, Participant,
                                         resource_matrix)
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import device_sampler
 from repro_torch.data.sampler import class_balanced_batches, sample_batches
+from repro_torch.obs import NULL_OBS
+from repro_torch.obs.trace import synchronize
 
 
 @dataclass
@@ -78,12 +88,26 @@ class FLConfig:
     seed: int = 0
     class_balanced: bool = True
     use_kd: bool = True
+    # one vmapped update per cluster round; False trains members one by one
+    # (the per-pid reference loop, ``_train_cluster_loop``)
+    vmap_clusters: bool = True
+    # let a vmap_clusters=False engine still take the dispatch path when
+    # rounds_per_dispatch > 1 (the loop itself cannot be fused)
+    allow_loop_dispatch: bool = False
     # round every cluster's member count up to a capacity bucket (next
     # power of two up to pad_max, then multiples of pad_max) with zero rows
     pad_clusters: bool = True
     pad_max: int = 64
+    # "sync": FedAvg over this round's contributors; "buffered": banked late
+    # updates join later aggregates at n * staleness_discount**age
+    aggregation: str = "sync"
+    staleness_discount: float = 0.6
     # >1 runs that many rounds per dispatch block on the parameter plane
     rounds_per_dispatch: int = 1
+    # a dispatch block writes its final plane (and bank plane) into the
+    # caller's input buffers and returns them, as the JAX package donates
+    # them: the caller must not read the input expecting the old values
+    donate_plane: bool = True
     consts: rnd.ConvergenceConstants = field(
         default_factory=rnd.ConvergenceConstants)
 
@@ -93,6 +117,7 @@ class DispatchOut:
     """Result of one dispatch block (``FedRAC.dispatch_rounds``)."""
     plane: torch.Tensor               # (D_pad,) fp32
     losses: torch.Tensor              # (R, C) per-round per-member losses
+    bank: tuple | None                # (bank_plane, bank_w) after the block
     history: torch.Tensor | None      # (R, D_pad) per-round planes
 
 
@@ -121,21 +146,58 @@ def resolve_device(device=None) -> torch.device:
 
 class _Program:
     """One cached round or block program and the number of times it was
-    built (``FedRAC.compile_stats``)."""
-    __slots__ = ("fn", "builds")
+    built (``FedRAC.compile_stats``).
 
-    def __init__(self, fn):
+    With observability on (``obs``), the first call is timed to the end of
+    its device work and recorded as the JAX package records a compile
+    (``fl/compiles/<label>``, ``fl/compile_s/<label>``, ``fl/compile_total``,
+    the ``fl/compile_s`` histogram and a ``compile`` span): the port builds
+    nothing ahead of time, so the first call is where a program's one-time
+    cost lands (cuDNN's per-shape set-up, the first ``torch.func`` pass)."""
+    __slots__ = ("fn", "builds", "_obs", "_label", "_called")
+
+    def __init__(self, fn, obs=None, label: str = ""):
         self.fn = fn
         self.builds = 1
+        self._obs = obs
+        self._label = label
+        self._called = False
 
     def __call__(self, *args):
-        return self.fn(*args)
+        if self._obs is None or self._called:
+            return self.fn(*args)
+        self._called = True
+        t0 = time.perf_counter_ns()
+        out = self.fn(*args)
+        synchronize(out)
+        dt_ns = time.perf_counter_ns() - t0
+        reg = self._obs.registry
+        reg.counter(f"fl/compiles/{self._label}").inc()
+        reg.gauge(f"fl/compile_s/{self._label}").set(dt_ns / 1e9)
+        reg.counter("fl/compile_total").inc()
+        reg.histogram("fl/compile_s").observe(dt_ns / 1e9)
+        self._obs.tracer.complete("compile", t0, dt_ns, cat="fl",
+                                  program=self._label)
+        return out
 
 
 class FedRAC:
     def __init__(self, parts: "list[Participant] | Fleet",
                  client_data: list[dict], family: FLModelFamily,
-                 cfg: FLConfig, classes: int, *, device=None):
+                 cfg: FLConfig, classes: int, *, device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "meshes and tensor parallelism are not ported yet "
+                "(ROADMAP item 11); the port runs on one device")
+        if cfg.aggregation not in ("sync", "buffered"):
+            raise ValueError(f"unknown aggregation {cfg.aggregation!r}")
+        if (cfg.rounds_per_dispatch > 1 and not cfg.vmap_clusters
+                and not cfg.allow_loop_dispatch):
+            raise ValueError(
+                "rounds_per_dispatch>1 needs vmap_clusters=True: the per-pid "
+                "loop cannot run as a dispatch block (set "
+                "allow_loop_dispatch=True to route a loop-configured engine "
+                "through the dispatch path anyway)")
         self.device = resolve_device(device)
         if isinstance(parts, Fleet):
             self.fleet = parts
@@ -147,9 +209,15 @@ class FedRAC:
         self.family = family
         self.cfg = cfg
         self.classes = classes
+        # metrics registry + tracer; NULL_OBS keeps every instrumented site
+        # on its single-branch no-op path
+        self.obs = NULL_OBS
         self._programs = {}               # program key -> _Program
         self._plane_specs = {}            # level -> PlaneSpec
         self._shard_packs = {}            # (level, members, cap, bal) -> pack
+        # newest pack per (level, capacity, balanced): the base of a delta
+        # update when membership churns
+        self._pack_prev = {}
         self._shard_len_pad = None
         self._class_m_pad = None
         self._class_tables = {}           # pid -> (table, counts)
@@ -272,6 +340,9 @@ class FedRAC:
                 arr = np.concatenate(
                     [arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
             out[k] = torch.as_tensor(arr).to(self.device)
+        if self.obs.on:
+            self.obs.registry.counter("fl/h2d_bytes").inc(
+                sum(x.nbytes for x in out.values()))
         return out
 
     # ------------------------------------------------------------ params
@@ -298,6 +369,24 @@ class FedRAC:
         """Unravel a plane into a params pytree (views into the plane)."""
         return self.plane_spec(level).to_params(plane)
 
+    # The JAX package commits planes, stacks and member rows to their mesh
+    # shardings through these four; on one device each is a move to it.
+    def place_plane(self, x) -> torch.Tensor:
+        """A (D,) plane on the engine's device."""
+        return x.to(self.device)
+
+    def place_plane_stack(self, x) -> torch.Tensor:
+        """An (R, D) teacher or history plane stack on the device."""
+        return x.to(self.device)
+
+    def place_member_plane(self, x) -> torch.Tensor:
+        """A (capacity, D) member or bank plane on the device."""
+        return x.to(self.device)
+
+    def place_member_sharded(self, x) -> torch.Tensor:
+        """A member-axis array (bank weights, masks) on the device."""
+        return torch.as_tensor(x).to(self.device)
+
     def _teacher_logits(self, teacher, batches):
         """Master logits for a (C, steps, batch, ...) batch stack: one
         forward of the master over the flattened batch."""
@@ -309,12 +398,16 @@ class FedRAC:
         return logits.reshape(*lead, -1)
 
     # ------------------------------------------------------------ one round
-    def _cluster_programs(self, level: int, use_kd: bool, capacity: int):
+    def _cluster_programs(self, level: int, use_kd: bool, capacity: int,
+                          want_stack: bool = False):
         """Cached whole-round program for one cluster: broadcast the shared
         params over the member axis, run every member's local steps under
-        one vmap (teacher logits for slave clusters), then FedAvg."""
+        one vmap (teacher logits for slave clusters), then FedAvg.
+        ``want_stack`` programs also return the per-member updated params
+        (the buffered schedule's banking hook)."""
         cfg = self.cfg
-        key = (level, use_kd, capacity, cfg.lr, cfg.kd_T, cfg.kd_alpha)
+        key = (level, use_kd, capacity, want_stack, cfg.lr, cfg.kd_T,
+               cfg.kd_alpha)
         if key not in self._programs:
             loss_fn = partial(self.family.loss_and_logits, level)
             kw = dict(kd_T=cfg.kd_T, kd_alpha=cfg.kd_alpha) if use_kd else {}
@@ -327,51 +420,139 @@ class FedRAC:
                             if use_kd else None)
                 new_stack, losses = update(p_stack, batches, step_masks,
                                            teachers)
-                return aggregation.aggregate(new_stack, weights), losses
+                agg = aggregation.aggregate(new_stack, weights)
+                if want_stack:
+                    return agg, losses, new_stack
+                return agg, losses
 
-            self._programs[key] = _Program(round_fn)
+            self._programs[key] = self._program(
+                round_fn, f"round_L{level}_cap{capacity}_R1"
+                + ("_kd" if use_kd else "") + ("_stack" if want_stack else ""))
         return self._programs[key]
+
+    def _program(self, fn, label: str) -> _Program:
+        return _Program(fn, self.obs if self.obs.on else None, label)
 
     def compile_stats(self) -> dict:
         """{program key -> times built}; every key should read 1."""
         return {key: prog.builds for key, prog in self._programs.items()}
 
     def cluster_round(self, level: int, members: list[int], params, r: int,
-                      *, teacher=None, step_masks=None, weights=None):
+                      *, teacher=None, step_masks=None, weights=None,
+                      buffered=None, return_stack: bool = False):
         """One communication round for a cluster: every member's local steps
         under one vmapped update, then FedAvg.
 
         ``step_masks`` (C, steps) zeroes out SGD steps per member (a zero
         row leaves that member at the incoming params).  ``weights`` are raw
         non-negative aggregation weights (default n_eff), renormalized over
-        the members; all-zero weights leave ``params`` unchanged.  The live
-        C is padded to its capacity bucket with zero rows.
+        the contributors; all-zero weights leave ``params`` unchanged.  The
+        live C is padded to its capacity bucket with zero rows.
 
-        Returns (new_params, member_losses)."""
+        ``buffered`` is a list of (params_pytree, raw_weight) banked
+        contributions (already staleness-discounted); they join this round's
+        FedAvg as extra members at their stale params.  ``return_stack=True``
+        also returns the per-member updated params stack, the banking hook
+        of the buffered schedule: the program then runs even when no live
+        weight remains (a stack-only round), and a round with banked
+        weight but no live weight runs no program (a bank-only round).
+
+        Returns (new_params, member_losses[, member_params_stack])."""
         cfg = self.cfg
         C = len(members)
         if weights is None:
             weights = [self.assignment.n_eff.get(pid, 1) for pid in members]
         w = np.asarray(weights, np.float32)
-        total = float(w.sum())
-        if total <= 0.0:                  # everyone dropped: no-op
+        buffered = list(buffered) if buffered else []
+        u = np.asarray([bw for _, bw in buffered], np.float32)
+        total = float(w.sum()) + float(u.sum())
+        if total <= 0.0 and not return_stack:
+            # everyone dropped: partial aggregation is a no-op
             return params, torch.zeros(C, device=self.device)
         cap = self._capacity(C)
-        batches = self._stacked_batches(members, r, level, cap)
-        steps = batches["y"].shape[1]
-        masks = np.zeros((cap, steps), np.float32)
-        masks[:C] = (1.0 if step_masks is None
-                     else np.asarray(step_masks, np.float32))
-        w_pad = np.zeros(cap, np.float32)
-        w_pad[:C] = w / total
-        use_kd = teacher is not None and cfg.use_kd
-        round_fn = self._cluster_programs(level, use_kd, cap)
-        new_params, losses = round_fn(
-            params, batches, torch.as_tensor(masks).to(self.device),
-            torch.as_tensor(w_pad).to(self.device), teacher)
-        return new_params, losses[:C]
+        run_program = float(w.sum()) > 0.0 or return_stack
+        stack = None
+        denom = total if total > 0.0 else 1.0
+        if run_program:
+            batches = self._stacked_batches(members, r, level, cap)
+            steps = batches["y"].shape[1]
+            masks = np.zeros((cap, steps), np.float32)
+            masks[:C] = (1.0 if step_masks is None
+                         else np.asarray(step_masks, np.float32))
+            w_pad = np.zeros(cap, np.float32)
+            w_pad[:C] = w / denom
+            use_kd = teacher is not None and cfg.use_kd
+            round_fn = self._cluster_programs(level, use_kd, cap,
+                                              want_stack=return_stack)
+            out = round_fn(params, batches,
+                           torch.as_tensor(masks).to(self.device),
+                           torch.as_tensor(w_pad).to(self.device), teacher)
+            partial_p, losses = out[0], out[1]
+            if return_stack:
+                stack = out[2]
+        else:                           # only banked updates contribute
+            partial_p = tree_map(torch.zeros_like, params)
+            losses = torch.zeros(cap, device=self.device)
+        if total <= 0.0:                # stack-only round: aggregate no-op
+            return params, losses[:C], stack
+        if buffered:
+            partial_p = aggregation.merge_buffered(
+                partial_p, [p for p, _ in buffered], u / total)
+        losses = losses[:C]
+        return ((partial_p, losses, stack) if return_stack
+                else (partial_p, losses))
 
     # ------------------------------------------------------------ dispatch
+    def _delta_shards(self, level: int, members: list[int], capacity: int,
+                      balanced: bool):
+        """Delta shard-pack update on membership churn: when a previous pack
+        exists at the same (level, capacity, balanced) signature, surviving
+        member rows are permuted on the device (one gather and a row mask)
+        and only new members' shards are copied from the host, so a
+        Procedure-2 migration of one participant moves one row, not the
+        whole (capacity, N_pad, ...) stack.  Returns the new shards tree and
+        the bytes copied, or None when a full build is better (no base
+        pack, more than half the rows new)."""
+        prev = self._pack_prev.get((level, capacity, balanced))
+        if prev is None:
+            return None
+        prev_members, prev_shards = prev
+        pos = {pid: i for i, pid in enumerate(prev_members)}
+        src = np.zeros(capacity, np.int64)
+        keep = np.zeros(capacity, bool)
+        fresh = []
+        for i, pid in enumerate(members):
+            j = pos.get(pid)
+            if j is None:
+                fresh.append(i)
+            else:
+                src[i] = j
+                keep[i] = True
+        if len(fresh) > max(1, len(members) // 2):
+            return None
+        src_d = torch.as_tensor(src, device=self.device)
+        keep_d = torch.as_tensor(keep, device=self.device)
+
+        def permute(a):
+            g = a[src_d]
+            mask = keep_d.reshape((capacity,) + (1,) * (g.dim() - 1))
+            return torch.where(mask, g, torch.zeros((), dtype=g.dtype,
+                                                    device=g.device))
+
+        shards = tree_map(permute, prev_shards)
+        moved = 0
+        if fresh:
+            host_rows = tree_map(
+                lambda *xs: _padded_rows(xs, len(fresh), self._shard_len_pad),
+                *[self._member_shard(members[i]) for i in fresh])
+            idx = torch.as_tensor(np.asarray(fresh), device=self.device)
+            shards = tree_map(
+                lambda a, f: a.index_copy(
+                    0, idx, torch.as_tensor(f).to(self.device)),
+                shards, host_rows)
+            moved = sum(x.nbytes for x in tree_leaves(host_rows))
+        return shards, moved
+
     def _shard_pack(self, level: int, members: list[int], capacity: int,
                     balanced: bool):
         """Device-resident member data for the dispatch path: every
@@ -379,28 +560,27 @@ class FedRAC:
         rows are zeros and never drawn), plus host copies of the lengths
         and, for balanced levels, the class tables the draws need.  N_pad
         and the table width are fleet-wide powers of two, so shapes do not
-        change with membership."""
+        change with membership.  Under churn the shards come from the
+        previous pack of the same signature (``_delta_shards``)."""
         key = (level, tuple(members), capacity, balanced)
         if key in self._shard_packs:
             pack = self._shard_packs.pop(key)      # LRU: refresh on hit
             self._shard_packs[key] = pack
             return pack
+        t0 = time.perf_counter_ns()
         if self._shard_len_pad is None:
             n_max = max(max((_shard_len(self._member_shard(q))
                              for q in range(len(self.parts))), default=1), 1)
             self._shard_len_pad = 1 << (n_max - 1).bit_length()
         N = self._shard_len_pad
         shards = [self._member_shard(pid) for pid in members]
-
-        def pack_leaf(*xs):
-            first = np.asarray(xs[0])
-            out = np.zeros((capacity, N) + first.shape[1:], first.dtype)
-            for i, x in enumerate(xs):
-                x = np.asarray(x)
-                out[i, :x.shape[0]] = x
-            return torch.as_tensor(out).to(self.device)
-
-        packed = tree_map(pack_leaf, *shards)
+        delta = self._delta_shards(level, members, capacity, balanced)
+        if delta is not None:
+            packed, nbytes = delta
+        else:
+            packed = tree_map(lambda *xs: torch.as_tensor(
+                _padded_rows(xs, capacity, N)).to(self.device), *shards)
+            nbytes = sum(x.nbytes for x in tree_leaves(packed))
         n = np.zeros(capacity, np.int64)
         n[:len(members)] = [_shard_len(s) for s in shards]
         pack = {"shards": packed, "n": n, "tables": None, "counts": None}
@@ -415,6 +595,19 @@ class FedRAC:
         if len(self._shard_packs) >= 16:               # bound device memory
             self._shard_packs.pop(next(iter(self._shard_packs)))
         self._shard_packs[key] = pack
+        self._pack_prev[(level, capacity, balanced)] = (tuple(members),
+                                                        packed)
+        if self.obs.on:
+            # the shards are the pack's only device copy: lengths and class
+            # tables stay on the host, where the draws are made
+            reg = self.obs.registry
+            reg.counter("fl/h2d_bytes").inc(nbytes)
+            reg.counter("fl/pack_builds").inc()
+            if delta is not None:
+                reg.counter("fl/pack_delta").inc()
+            self.obs.tracer.complete(
+                "pack_h2d", t0, time.perf_counter_ns() - t0, cat="fl",
+                level=level, bytes=nbytes, delta=delta is not None)
         return pack
 
     def _draw_indices(self, pack, r: int, balanced: bool) -> np.ndarray:
@@ -430,19 +623,28 @@ class FedRAC:
             cfg.seed, r, cfg.steps_per_round, cfg.local_batch, pack["n"])
 
     def _dispatch_programs(self, level: int, use_kd: bool, capacity: int,
-                           R: int, balanced: bool, want_history: bool):
+                           R: int, balanced: bool, banked: bool,
+                           want_history: bool, t_per_round: bool = False):
         """Cached block program: R communication rounds.  Each round gathers
         every member's batches from the device-resident shards by the
         block's pre-drawn indices (through ``_batch_from_gathered``, per
         member), runs the teacher forward on them for a KD cluster, then
-        the vmapped member update from the
-        plane's parameters, and aggregates the (capacity, D_pad) member
-        plane with the fedagg kernel (on a CUDA plane).  A round whose
-        weights sum to zero leaves the plane unchanged."""
+        the vmapped member update from the plane's parameters, and
+        aggregates the (capacity, D_pad) member plane with the fedagg
+        kernel (on a CUDA plane).  A round whose weights sum to zero leaves
+        the plane unchanged.
+
+        ``banked`` programs carry the buffered schedule's bank through the
+        rounds: each round merges the previous round's bank rows (weights
+        already staleness-discounted) into its FedAvg with a second fedagg
+        contraction, then re-banks this round's member rows at
+        ``bank_gain``.  ``t_per_round`` programs take an (R, D_master)
+        stack of teacher planes, round j's teacher being its row j, instead
+        of one fixed teacher."""
         cfg = self.cfg
-        key = ("dispatch", level, use_kd, capacity, R, balanced,
-               want_history, cfg.lr, cfg.kd_T, cfg.kd_alpha, cfg.seed,
-               cfg.steps_per_round, cfg.local_batch)
+        key = ("dispatch", level, use_kd, capacity, R, balanced, banked,
+               want_history, t_per_round, cfg.lr, cfg.kd_T, cfg.kd_alpha,
+               cfg.seed, cfg.steps_per_round, cfg.local_batch)
         if key in self._programs:
             return self._programs[key]
         loss_fn = partial(self.family.loss_and_logits, level)
@@ -450,7 +652,8 @@ class FedRAC:
         update = make_cluster_update(loss_fn, cfg.lr, **kw)
         spec = self.plane_spec(level)
 
-        def one_round(g, idx, shards, step_masks, weights, teacher):
+        def one_round(g, bank_p, bank_w, idx, shards, step_masks, weights,
+                      teacher):
             C = step_masks.shape[0]
             rows = torch.arange(C, device=g.device)[:, None, None]
             batches = vmap(self._batch_from_gathered)(
@@ -463,43 +666,78 @@ class FedRAC:
                                        teachers)
             new_plane = spec.to_plane(new_stack)            # (C, D_pad)
             total = weights.sum()
+            if banked:
+                total = total + bank_w.sum()
             denom = torch.where(total > 0.0, total, torch.ones_like(total))
             agg = aggregation.aggregate_plane(new_plane, weights / denom)
-            return torch.where(total > 0.0, agg, g), losses
+            if banked:
+                agg = aggregation.merge_buffered_plane(agg, bank_p,
+                                                       bank_w / denom)
+            # the member plane lives on only as the next round's bank: a
+            # block without one frees it here, not a round later
+            return (torch.where(total > 0.0, agg, g),
+                    new_plane if banked else None, losses)
 
-        def block_fn(plane, shards, idx, step_masks, weights, teacher):
+        def block_fn(plane, shards, idx, step_masks, weights, teacher, bank):
+            g = plane
+            bank_p, bank_w, bank_gain = bank if banked else (None,) * 3
             losses, history = [], []
             for i in range(R):
-                plane, l = one_round(plane, idx[i], shards, step_masks,
-                                     weights, teacher)
+                t = (self.params_of(0, teacher[i]) if t_per_round
+                     else teacher)
+                g, rows, l = one_round(g, bank_p, bank_w, idx[i], shards,
+                                       step_masks, weights, t)
+                if banked:
+                    bank_p, bank_w = rows, bank_gain
+                del rows
                 losses.append(l)
                 if want_history:
-                    history.append(plane)
-            return (plane, torch.stack(losses),
+                    history.append(g)
+            return (g, (bank_p, bank_w) if banked else None,
+                    torch.stack(losses),
                     torch.stack(history) if want_history else None)
 
-        self._programs[key] = _Program(block_fn)
+        self._programs[key] = self._program(
+            block_fn, f"dispatch_L{level}_cap{capacity}_R{R}"
+            + ("_kd" if use_kd else "") + ("_bank" if banked else ""))
         return self._programs[key]
 
     def dispatch_rounds(self, level: int, members: list[int], plane,
                         r0: int, n_rounds: int, *, teacher=None,
-                        step_masks=None, weights=None,
-                        want_history: bool = False) -> DispatchOut:
+                        teacher_planes=None, step_masks=None, weights=None,
+                        bank=None, want_history: bool = False) -> DispatchOut:
         """Run rounds r0 .. r0 + n_rounds - 1 of one cluster as one block.
 
-        ``plane`` is the cluster's (D_pad,) parameter plane.  ``teacher``
-        (a master params pytree) is fixed for the whole block, as in
-        ``train``, whose master is fully trained first.  ``weights`` (raw)
-        and ``step_masks`` may come pre-padded to the capacity as device
-        tensors.  Returns per-round member losses and, with
-        ``want_history``, the per-round planes."""
+        ``plane`` is the cluster's (D_pad,) parameter plane; with
+        ``donate_plane`` the block writes its result into it (and into the
+        bank plane) and returns it, so the caller must not expect the old
+        values there.  ``bank`` is the buffered schedule's carry
+        ``(bank_plane (cap, D_pad), bank_w (cap,), bank_gain (cap,))``:
+        rows merged into the first round at ``bank_w``, each round's member
+        updates re-banked at ``bank_gain`` (zero = not banked).  The KD
+        teacher is either ``teacher`` (one params pytree, fixed for the
+        block, as in ``train``, whose master is fully trained first) or
+        ``teacher_planes`` (an (n_rounds, D_master) stack, one teacher per
+        round: the simulator's path, where the master co-trains).
+        ``weights`` (raw) and ``step_masks`` may come pre-padded to the
+        capacity as device tensors.  Returns per-round member losses, the
+        bank after the block, and, with ``want_history``, the per-round
+        planes."""
         cfg = self.cfg
         C = len(members)
         cap = self._capacity(C)
         balanced = cfg.class_balanced and level == 0
-        use_kd = cfg.use_kd and teacher is not None
+        use_kd = cfg.use_kd and (teacher is not None
+                                 or teacher_planes is not None)
+        t_per_round = use_kd and teacher_planes is not None
+        if t_per_round and teacher_planes.shape[0] != n_rounds:
+            raise ValueError(
+                f"teacher_planes carries {teacher_planes.shape[0]} rounds "
+                f"for a {n_rounds}-round block")
+        banked = bank is not None
         pack = self._shard_pack(level, members, cap, balanced)
         S = cfg.steps_per_round
+        h2d = 0
         if isinstance(weights, torch.Tensor) and weights.shape == (cap,):
             w = weights
         else:
@@ -508,6 +746,7 @@ class FedRAC:
                            for pid in members]
             w = np.zeros(cap, np.float32)
             w[:C] = np.asarray(weights, np.float32)
+            h2d += w.nbytes
             w = torch.as_tensor(w).to(self.device)
         if (isinstance(step_masks, torch.Tensor)
                 and step_masks.shape == (cap, S)):
@@ -516,24 +755,54 @@ class FedRAC:
             masks = np.zeros((cap, S), np.float32)
             masks[:C] = (1.0 if step_masks is None
                          else np.asarray(step_masks, np.float32))
+            h2d += masks.nbytes
             masks = torch.as_tensor(masks).to(self.device)
         prog = self._dispatch_programs(level, use_kd, cap, n_rounds,
-                                       balanced, want_history)
+                                       balanced, banked, want_history,
+                                       t_per_round=t_per_round)
         idx = np.stack([self._draw_indices(pack, r, balanced)
                         for r in range(r0, r0 + n_rounds)])
+        h2d += idx.nbytes
         idx = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
-        new_plane, losses, history = prog(plane, pack["shards"], idx, masks,
-                                          w, teacher if use_kd else None)
-        return DispatchOut(plane=new_plane, losses=losses[:, :C],
+        t_arg = (teacher_planes if t_per_round
+                 else teacher if use_kd else None)
+        if banked:
+            bank = (bank[0], bank[1],
+                    torch.as_tensor(bank[2], dtype=torch.float32
+                                    ).to(self.device))
+        with self.obs.tracer.span("block_exec", cat="fl", level=level,
+                                  R=n_rounds, capacity=cap):
+            new_plane, bank_out, losses, history = prog(
+                plane, pack["shards"], idx, masks, w, t_arg, bank)
+            if cfg.donate_plane:
+                new_plane = plane.copy_(new_plane)
+                if banked:
+                    bank_out = (bank[0].copy_(bank_out[0]), bank_out[1])
+            self.obs.tracer.fence(new_plane)
+        losses = losses[:, :C]
+        if self.obs.on:
+            reg = self.obs.registry
+            reg.counter("fl/dispatch_blocks").inc()
+            reg.counter("fl/dispatch_rounds").inc(n_rounds)
+            reg.counter("fl/h2d_bytes").inc(h2d)
+            # per-round member losses are the block's host-bound output
+            reg.counter("fl/d2h_bytes").inc(
+                losses.numel() * losses.element_size())
+        return DispatchOut(plane=new_plane, losses=losses, bank=bank_out,
                            history=history)
 
     # ------------------------------------------------------------ training
     def _train_cluster(self, level: int, members: list[int], n_rounds: int,
                        test, teacher=None, record_every: int = 1):
+        cfg = self.cfg
         params = self.init_params(level)
         if not members:
             return params, []
-        if self.cfg.rounds_per_dispatch > 1:
+        if not cfg.vmap_clusters and not (cfg.allow_loop_dispatch
+                                          and cfg.rounds_per_dispatch > 1):
+            return self._train_cluster_loop(level, members, n_rounds, test,
+                                            params, teacher, record_every)
+        if cfg.rounds_per_dispatch > 1:
             return self._train_cluster_dispatch(level, members, n_rounds,
                                                 test, params, teacher,
                                                 record_every)
@@ -582,6 +851,44 @@ class FedRAC:
             r += L
         return self.params_of(level, plane), history
 
+    def _train_cluster_loop(self, level: int, members: list[int],
+                            n_rounds: int, test, params, teacher=None,
+                            record_every: int = 1):
+        """Reference per-pid loop (``vmap_clusters=False``): each member's
+        local steps run on its own from the one-round path's host batches,
+        then the FedAvg over the members."""
+        cfg = self.cfg
+        loop_key = ("loop", level, cfg.lr, cfg.kd_T, cfg.kd_alpha)
+        if loop_key not in self._programs:
+            loss_fn = partial(self.family.loss_and_logits, level)
+            self._programs[loop_key] = _Program(
+                (partial(local_update, loss_fn, lr=cfg.lr, kd_T=cfg.kd_T,
+                         kd_alpha=cfg.kd_alpha),
+                 partial(local_update, loss_fn, lr=cfg.lr)))
+        upd, upd_plain = self._programs[loop_key].fn
+        use_kd = teacher is not None and cfg.use_kd
+        balanced = cfg.class_balanced and level == 0
+        history = []
+        weights = aggregation.normalized_weights(
+            [self.assignment.n_eff.get(pid, 1) for pid in members],
+            device=self.device)
+        for r in range(n_rounds):
+            new_params = []
+            for pid in members:
+                batches = self._to_device(
+                    self._client_batches(pid, r, balanced))
+                if use_kd:
+                    tl = self._teacher_logits(teacher, batches)
+                    p_new, _ = upd(params, batches, teacher_logits=tl)
+                else:
+                    p_new, _ = upd_plain(params, batches)
+                new_params.append(p_new)
+            stack = tree_map(lambda *xs: torch.stack(xs), *new_params)
+            params = aggregation.aggregate(stack, weights)
+            if (r + 1) % record_every == 0:
+                history.append(self.evaluate(level, params, test))
+        return params, history
+
     def evaluate(self, level: int, params, test) -> float:
         test = self._to_device(test)
         with torch.no_grad():
@@ -618,6 +925,17 @@ class FedRAC:
             labels=self.labels, assignment=self.assignment, history=history,
             final_acc=final, global_acc=float(np.mean(accs)),
             rounds_used=n_rounds)
+
+
+def _padded_rows(shards, rows: int, n_pad: int) -> np.ndarray:
+    """Stack member shards (leading axis = shard length) into one
+    zero-padded (rows, n_pad, ...) array."""
+    first = np.asarray(shards[0])
+    out = np.zeros((rows, n_pad) + first.shape[1:], first.dtype)
+    for i, x in enumerate(shards):
+        x = np.asarray(x)
+        out[i, :x.shape[0]] = x
+    return out
 
 
 def _shard_len(shard) -> int:

@@ -1,0 +1,259 @@
+"""Heterogeneity-simulation launcher: Fed-RAC under an event trace.
+
+  PYTHONPATH=src python -m repro_torch.launch.sim_run --trace dropout \
+      --participants 16 --rounds 8 --mar-policy drop --dropout-rate 0.2 \
+      [--device cpu]
+
+Builds the usual Fed-RAC pipeline (clustering → compaction → Procedure-2
+assignment) on synthetic federated data, then hands it to
+``repro_torch.sim.HeterogeneitySim``: per-round MAR deadline enforcement,
+dropouts/arrivals, resource drift through dynamic reassignment, straggler
+spikes — and prints the per-round timeline plus summary (optionally JSON).
+``--rounds-per-dispatch R`` (> 1) runs fused blocks of up to R rounds
+between events.  ``--metrics-out``, ``--trace-out``, ``--report-out`` and
+``--fence`` write the observability artifacts that
+``python -m repro_torch.obs.validate`` checks.
+
+The flags are the JAX launcher's, plus ``--device`` (``cuda`` by default;
+without a card it raises).  What is not ported yet exits nonzero naming its
+ROADMAP item: ``--mode async`` and ``--max-staleness`` (item 7),
+``--fleet-size`` (item 7b),
+``--mesh-shape`` and ``--tp-forward`` (item 11), and the checkpoint and
+fault-injection flags ``--ckpt-*``, ``--resume``, ``--kill-*`` and
+``--corrupt-ckpt`` (item 8).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import zlib
+
+import numpy as np
+
+from repro_torch.core import server as srv
+from repro_torch.core.families import cnn_family
+from repro_torch.core.resources import (LAMBDA_EQUAL, LAMBDA_PAPER,
+                                        participants_from_matrix)
+from repro_torch.core.tree import tree_leaves
+from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.synthetic import (SPECS, make_classification,
+                                        train_test_split)
+from repro_torch.obs import make_observability
+from repro_torch.sim import (SCENARIOS, HeterogeneitySim, SimConfig,
+                             make_trace, sample_profiles, scenario_knobs)
+
+# flag -> (the value it has when not given, what it waits for)
+_NOT_PORTED = {
+    "mode": ("sync", "the async server, ROADMAP item 7 (async part)"),
+    "max_staleness": (None, "the async server, ROADMAP item 7 (async "
+                            "part)"),
+    "fleet_size": (0, "the vectorized fleet simulator, ROADMAP item 7b"),
+    "mesh_shape": (None, "meshes and tensor parallelism, ROADMAP item 11"),
+    "tp_forward": (None, "meshes and tensor parallelism, ROADMAP item 11"),
+    "ckpt_dir": (None, "checkpoints and resume, ROADMAP item 8"),
+    "ckpt_every": (None, "checkpoints and resume, ROADMAP item 8"),
+    "ckpt_keep": (None, "checkpoints and resume, ROADMAP item 8"),
+    "resume": (False, "checkpoints and resume, ROADMAP item 8"),
+    "kill_at_round": (None, "fault injection, ROADMAP item 8"),
+    "kill_mid_block": (None, "fault injection, ROADMAP item 8"),
+    "corrupt_ckpt": (None, "fault injection, ROADMAP item 8"),
+}
+
+
+def _refuse_not_ported(args) -> None:
+    for name, (unset, item) in _NOT_PORTED.items():
+        if getattr(args, name) != unset:
+            flag = "--" + name.replace("_", "-")
+            raise SystemExit(f"{flag} is not ported yet: it waits for {item}")
+
+
+def _trace_knobs(args) -> dict:
+    """CLI rate knobs the chosen scenario accepts, only when explicitly set
+    (``make_trace`` rejects unknown knobs — a typo'd ``--dropout-rate`` on a
+    drift trace must fail loudly, not silently no-op)."""
+    knobs = {"dropout_rate": args.dropout_rate, "drift_rate": args.drift_rate,
+             "spike_rate": args.spike_rate}
+    explicit = {k: v for k, v in knobs.items() if v is not None}
+    unknown = set(explicit) - scenario_knobs(args.trace)
+    if unknown:
+        raise SystemExit(
+            f"--{sorted(unknown)[0].replace('_', '-')} does not apply to "
+            f"trace {args.trace!r} (knobs: "
+            f"{sorted(scenario_knobs(args.trace)) or 'none'})")
+    return explicit
+
+
+def _params_crc32(params: dict) -> dict:
+    """Per-level CRC32 over the raveled parameter bytes."""
+    out = {}
+    for lvl in sorted(params):
+        crc = 0
+        for leaf in tree_leaves(params[lvl]):
+            crc = zlib.crc32(np.ascontiguousarray(
+                leaf.detach().cpu().numpy()).tobytes(), crc)
+        out[str(lvl)] = crc
+    return out
+
+
+def _flush_obs(args, obs) -> None:
+    if obs is None:
+        return
+    if args.metrics_out:
+        n = obs.registry.to_jsonl(args.metrics_out)
+        print(f"# metrics: {n} lines -> {args.metrics_out}")
+    if args.trace_out:
+        obs.tracer.write(args.trace_out)
+        print(f"# trace: {len(obs.tracer.events())} spans -> "
+              f"{args.trace_out}"
+              + (" (fenced timings)" if args.fence else ""))
+
+
+def build(args):
+    ds = make_classification(args.dataset, args.samples, seed=args.seed)
+    train, test = train_test_split(ds)
+    idx = dirichlet_partition(train.y, args.participants,
+                              alpha=args.dirichlet, seed=args.seed)
+    V = sample_profiles(args.participants, seed=args.seed)
+    parts = participants_from_matrix(V, n_data=[len(p) for p in idx])
+    client_data = [{"x": train.x[p], "y": train.y[p]} for p in idx]
+    shape, classes = SPECS[args.dataset]
+    fam = cnn_family(classes=classes, in_channels=shape[-1],
+                     alpha=args.alpha, base_width=args.base_width,
+                     input_hw=shape[0])
+    lam = LAMBDA_PAPER if args.lam == "paper" else LAMBDA_EQUAL
+    cfg = srv.FLConfig(alpha=args.alpha, steps_per_round=args.steps_per_round,
+                       lr=args.lr, lam=lam, compact_to=args.compact_to,
+                       seed=args.seed, E=args.epochs, mar=args.mar,
+                       kappa=args.kappa, pad_clusters=not args.no_pad,
+                       aggregation=("buffered" if args.mar_policy == "buffer"
+                                    else "sync"),
+                       staleness_discount=args.staleness_discount,
+                       rounds_per_dispatch=args.rounds_per_dispatch)
+    eng = srv.FedRAC(parts, client_data, fam, cfg, classes=classes,
+                     device=args.device).setup()
+    return eng, {"x": test.x, "y": test.y}
+
+
+def run(args):
+    _refuse_not_ported(args)
+    eng, testb = build(args)
+    members = {l: len(v) for l, v in eng.assignment.members.items()}
+    print(f"device={eng.device} k_optimal={eng.k_optimal} "
+          f"compacted_to={eng.m} MAR(master)={eng.specs[0].mar:.2f}s "
+          f"members={members}")
+    trace = make_trace(args.trace, args.participants, args.rounds,
+                       seed=args.seed, **_trace_knobs(args))
+    obs = None
+    if args.metrics_out or args.trace_out or args.fence:
+        obs = make_observability(fence=args.fence)
+    sim = HeterogeneitySim(eng, trace, SimConfig(
+        rounds=args.rounds, mar_policy=args.mar_policy,
+        schedule=args.schedule, eval_every=args.eval_every,
+        select=args.select, select_budget=args.select_budget), obs=obs)
+    report = sim.run(testb)
+    print(report.timeline())
+    stats = eng.compile_stats()
+    print(f"# round programs={len(stats)} builds={sum(stats.values())} "
+          f"(padding {'on' if eng.cfg.pad_clusters else 'off'})")
+    _flush_obs(args, obs)
+    if args.report_out:
+        doc = report.to_dict()
+        doc["params_crc32"] = _params_crc32(sim.params)
+        with open(args.report_out, "w") as f:
+            json.dump(doc, f, default=float)
+        print(f"# report -> {args.report_out}")
+    if args.json:
+        print(json.dumps(report.to_dict(), default=float))
+    return report
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--trace", default="dropout", choices=sorted(SCENARIOS))
+    ap.add_argument("--mar-policy", default="drop",
+                    choices=["drop", "mask", "wait", "buffer"])
+    ap.add_argument("--staleness-discount", type=float, default=0.6,
+                    help="per-round weight decay of banked updates "
+                         "(buffer policy)")
+    ap.add_argument("--no-pad", action="store_true",
+                    help="disable capacity padding (a new program at every "
+                         "cluster-cardinality change)")
+    ap.add_argument("--rounds-per-dispatch", type=int, default=1,
+                    help=">1 runs up to that many rounds per cluster as one "
+                         "dispatch block between events (device-resident "
+                         "shards, flat-plane aggregation on the fedagg "
+                         "kernel)")
+    ap.add_argument("--schedule", default="parallel",
+                    choices=["parallel", "sequential"])
+    ap.add_argument("--mode", default="sync", choices=["sync", "async"],
+                    help="async: the continuous-time async server (not "
+                         "ported yet, ROADMAP item 7)")
+    ap.add_argument("--max-staleness", type=int, default=None, metavar="K",
+                    help="async: max version lead of any cluster over the "
+                         "slowest one (not ported yet, ROADMAP item 7)")
+    ap.add_argument("--dropout-rate", type=float, default=None,
+                    help="per-round dropout probability (dropout/mixed "
+                         "traces; scenario default when omitted)")
+    ap.add_argument("--drift-rate", type=float, default=None,
+                    help="per-round resource-drift probability (drift/mixed)")
+    ap.add_argument("--spike-rate", type=float, default=None,
+                    help="per-round straggler-spike probability "
+                         "(straggler/mixed)")
+    ap.add_argument("--select", default="all", choices=["all", "fedcs"],
+                    help="per-cluster client selection (fedcs: greedy "
+                         "deadline-aware admission, arXiv:1804.08333)")
+    ap.add_argument("--select-budget", type=int, default=0,
+                    help="fedcs: max clients admitted per cluster per round "
+                         "(0 = deadline-bounded only)")
+    ap.add_argument("--dataset", default="synth-mnist", choices=list(SPECS))
+    ap.add_argument("--participants", type=int, default=16)
+    ap.add_argument("--samples", type=int, default=1600)
+    ap.add_argument("--rounds", type=int, default=8)
+    ap.add_argument("--steps-per-round", type=int, default=4)
+    ap.add_argument("--epochs", type=int, default=2)
+    ap.add_argument("--lr", type=float, default=0.05)
+    ap.add_argument("--alpha", type=float, default=0.5)
+    ap.add_argument("--base-width", type=float, default=0.25)
+    ap.add_argument("--dirichlet", type=float, default=1.0)
+    ap.add_argument("--compact-to", type=int, default=3)
+    ap.add_argument("--lam", default="paper", choices=["paper", "equal"])
+    ap.add_argument("--mar", type=float, default=None,
+                    help="explicit MAR budget (s); default auto-calibrates")
+    ap.add_argument("--kappa", type=float, default=0.7)
+    ap.add_argument("--eval-every", type=int, default=2)
+    ap.add_argument("--json", action="store_true")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="export the metrics registry (counters, gauges, "
+                         "per-round tables) as JSON Lines")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="export a Chrome-trace/Perfetto JSON of the round "
+                         "pipeline (engine rounds, dispatch blocks, program "
+                         "first calls, transfers)")
+    ap.add_argument("--fence", action="store_true",
+                    help="wait for the card inside spans so timings cover "
+                         "device execution, not just the launches "
+                         "(serializes the pipeline — measurement mode)")
+    ap.add_argument("--report-out", default=None, metavar="PATH",
+                    help="write report.to_dict() JSON (summary + rows) — "
+                         "pairs with repro_torch.obs.validate --report")
+    ap.add_argument("--seed", type=int, default=3)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    # not ported yet: each exits nonzero naming its ROADMAP item
+    ap.add_argument("--fleet-size", type=int, default=0, metavar="N")
+    ap.add_argument("--mesh-shape", default=None, metavar="DATA[xMODEL]")
+    ap.add_argument("--tp-forward", default=None,
+                    action=argparse.BooleanOptionalAction)
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR")
+    ap.add_argument("--ckpt-every", type=int, default=None, metavar="R")
+    ap.add_argument("--ckpt-keep", type=int, default=None, metavar="K")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--kill-at-round", type=int, default=None, metavar="R")
+    ap.add_argument("--kill-mid-block", type=int, default=None, metavar="R")
+    ap.add_argument("--corrupt-ckpt", default=None,
+                    choices=["truncate", "garbage", "delete", "manifest"])
+    args = ap.parse_args(argv)
+    return run(args)
+
+
+if __name__ == "__main__":
+    main()

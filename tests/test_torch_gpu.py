@@ -171,3 +171,54 @@ def test_engine_on_card_matches_cpu(cuda, monkeypatch):
     for level in out["cpu"]:
         torch.testing.assert_close(out["cuda"][level], out["cpu"][level],
                                    rtol=2e-4, atol=1e-5)
+
+
+def test_buffered_block_merges_bank_and_flushes_on_the_kernel(cuda,
+                                                              monkeypatch):
+    """One fused "buffer" block (R = 2, rows entering the bank, member 0
+    re-banked each round) and an anchored flush of two bank rows: on the
+    card fedagg runs twice a round (members, then bank) and once for the
+    flush, and the results match the CPU's plain version."""
+    from repro_torch.sim import HeterogeneitySim, SimConfig, make_trace
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    ds = make_classification("synth-mnist", 400, seed=3)
+    train, _ = train_test_split(ds)
+    idx = dirichlet_partition(train.y, 8, alpha=1.0, seed=3)
+    V = TABLE_III[np.random.default_rng(3).integers(0, 40, 8)]
+    n_data = [len(p) for p in idx]
+    cd = [{"x": train.x[p], "y": train.y[p]} for p in idx]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = t_srv.FedRAC(participants_from_matrix(V, n_data=n_data), cd,
+                           cnn_family(base_width=0.125),
+                           t_srv.FLConfig(rounds_per_dispatch=2, seed=3,
+                                          aggregation="buffered",
+                                          compact_to=1),
+                           classes=10, device=dev).setup()
+        members = eng.assignment.members[0]
+        cap = eng._capacity(len(members))
+        plane = eng.plane_of(0, eng.init_params(0))
+        noise = torch.randn(cap, plane.shape[0],
+                            generator=torch.Generator().manual_seed(5))
+        rows = plane.cpu()[None] * (1.0 + 0.02 * noise)
+        rows[2:] = 0.0
+        bank_w = torch.zeros(cap)
+        bank_w[:2] = torch.tensor([0.9, 0.36])
+        gain = torch.zeros(cap)
+        gain[0] = 0.6 * eng.assignment.n_eff[members[0]]
+        weights = [0.0] + [eng.assignment.n_eff[p] for p in members[1:]]
+        before = fedagg_ops.weighted_aggregate.launches
+        blk = eng.dispatch_rounds(0, members, plane, 0, 2, weights=weights,
+                                  bank=(rows.to(dev), bank_w.to(dev), gain))
+        sim = HeterogeneitySim(eng, make_trace("stable", 8, 2),
+                               SimConfig(rounds=2, mar_policy="buffer"))
+        entries = [{"pid": members[i], "round": 1 - i, "n_eff": 3 + i,
+                    "plane": blk.bank[0][i].clone()} for i in range(2)]
+        flushed = sim._anchored_merge_plane(blk.plane, entries, 2, 0)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (blk.plane.cpu(), blk.bank[0].cpu(), flushed.cpu(),
+                    fedagg_ops.weighted_aggregate.launches - before)
+    assert out["cpu"][3] == 0 and out["cuda"][3] == 2 * 2 + 1
+    for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)
