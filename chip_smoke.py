@@ -42,6 +42,28 @@ Phases, each printing one JSON line:
               test sample;
   6c. sim_cli ``repro_torch.launch.sim_run`` in a subprocess with every
               observability output, checked by ``repro_torch.obs.validate``;
+  6d. async_main the continuous-time async server on sim_main's
+              configuration, deterministic cuDNN: (a) ``max_staleness=0``
+              against the sync buffered run — final planes, per-round
+              losses, accuracies and every record's host fields bit-equal
+              (``t_start`` is the earliest cluster clock, not the barrier's);
+              (b) unbounded staleness, cold and warm: merges, version lags,
+              the staleness histogram, the async wall clock, conservation
+              checked on every record a merge files, and fedagg launches
+              held to the records' count; fedagg held against its plain
+              version at every (C, D) these runs gave it;
+  6e. resume  in process, the sync and the unbounded async run without
+              checkpoints and with one at every boundary: the same bits,
+              and the cost of the writes; then ``repro_torch.launch.sim_run``
+              in subprocesses at that configuration (deterministic cuDNN,
+              ``sim_cli_child``): a sync dispatch run killed by a real
+              SIGKILL inside a block, then resumed; an async run killed at
+              a merge event, its newest checkpoint garbage-corrupted, then
+              resumed from the one before.  Each resumed report (params
+              CRC32 included) equals its uninterrupted control's under
+              ``compare_reports``; each control launched fedagg as often as
+              its records imply, and fedagg is held against its plain
+              version at every (C, D) the processes gave it;
   7. lm_main  Algorithm 1 on the LM family at full OLMo-1B width (two of its
               16 layers), token-only data, attention on the flash kernel:
               master FedAvg and a slave under KD through the dispatch path,
@@ -66,6 +88,7 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -99,6 +122,12 @@ LM_PARTICIPANTS, LM_CORPUS_TOKENS, LM_SEQ = 14, 12_000, 256
 SIM_ROUNDS, SIM_TRACE_SEED = 8, 3
 SIM_HOST_FIELDS = ("level", "time", "active", "dropped", "offline", "masked",
                    "violations", "banked", "unselected", "flushed", "bytes")
+# the simulator's launcher in a subprocess (``sim_cli_child``), run from
+# the repository's root
+SIM_CLI_MAIN = "import sys, chip_smoke; chip_smoke.sim_cli_child(sys.argv[1:])"
+# the resume phase: the sync run dies inside the block of this round, the
+# async run at this merge event
+RESUME_KILL_MID_BLOCK, RESUME_KILL_AT_MERGE = 5, 10
 
 
 def emit(obj):
@@ -422,7 +451,9 @@ def sim_host_rows(report):
 
 def expected_fedagg_launches(rows, terminal, compressions, banked):
     """The fedagg launches a simulator run on the dispatch path implies,
-    from its records ``rows`` (``SimReport.rows``):
+    from its records ``rows`` (``SimReport.rows``), sync or async (an async
+    block runs at its cluster's own round cursor, and its rounds are filed
+    as the same per-round records):
     - each round of a cluster that dispatched (a live member, or a banked
       one) aggregates its member plane once, and once more to merge the
       bank when its block carries one (``banked``: FLConfig(aggregation=
@@ -465,6 +496,12 @@ def sim_classes(srv, HeterogeneitySim):
             return super().dispatch_rounds(level, members, *args, **kw)
 
     class CountingSim(HeterogeneitySim):
+        conservation_checks = 0
+
+        def _check_conservation(self, s, n, r):
+            self.conservation_checks += 1
+            super()._check_conservation(s, n, r)
+
         def _anchored_merge_plane(self, cur, entries, r, lvl):
             self.fl.fedagg_shapes.add((len(entries), cur.shape[0]))
             return super()._anchored_merge_plane(cur, entries, r, lvl)
@@ -474,6 +511,153 @@ def sim_classes(srv, HeterogeneitySim):
             super()._terminal_flush(params, rounds, report, merge)
 
     return ShapeFedRAC, CountingSim
+
+
+def sim_host_rows_per_cluster(report):
+    """``sim_host_rows`` without each record's ``t_start``: in async mode it
+    is the earliest cluster clock, which equals the sync engine's barrier
+    clock only with one cluster."""
+    return [r[:1] + r[2:] for r in sim_host_rows(report)]
+
+
+def fedagg_record_path(report_out):
+    return Path(str(report_out) + ".fedagg.json")
+
+
+def sim_cli_child(argv):
+    """One launcher process of the resume phase: ``sim_run.main(argv)`` with
+    run-to-run deterministic cuDNN (the phase compares runs bit for bit) and
+    TF32 off, as in the parent, and with ``sim_classes``' engine and
+    simulator in place of the launcher's.  A process that runs to its end
+    writes beside its ``--report-out`` (``fedagg_record_path``) the (C, D)
+    shapes fedagg was given, its launches in ``sim.run`` and, in a run that
+    did not resume, the launches its records imply."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import server as srv
+    from repro_torch.kernels.fedagg import ops as f_ops
+    from repro_torch.launch import sim_run
+    from repro_torch.obs import make_observability
+    ShapeFedRAC, CountingSim = sim_classes(srv, sim_run.HeterogeneitySim)
+
+    class LauncherSim(CountingSim):
+        def __init__(self, *a, obs=None, **kw):
+            # a registry that counts agg/bank_compressions
+            super().__init__(*a, obs=obs or make_observability(trace=False),
+                             **kw)
+            LauncherSim.last = self
+
+        def run(self, test):
+            f_ops.weighted_aggregate.launches = 0
+            return super().run(test)
+
+    srv.FedRAC, sim_run.HeterogeneitySim = ShapeFedRAC, LauncherSim
+    report = sim_run.main(argv)
+    sim = LauncherSim.last
+    rec = {"launches": f_ops.weighted_aggregate.launches,
+           "shapes": sorted(sim.fl.fedagg_shapes)}
+    if "--resume" not in argv:
+        comp = int(sim.obs.registry.counter("agg/bank_compressions").value)
+        rec["expected_launches"] = expected_fedagg_launches(
+            report.rows, sim.terminal, comp,
+            sim.fl.cfg.aggregation == "buffered")
+    if "--report-out" in argv:
+        with open(fedagg_record_path(argv[argv.index("--report-out") + 1]),
+                  "w") as f:
+            json.dump(rec, f)
+
+
+def resume_runs(base, out_dir, env, compare_reports, manager_cls):
+    """The resume phase's six launcher processes on the flags ``base``: a
+    sync dispatch run (control; killed by SIGKILL inside the block of round
+    ``RESUME_KILL_MID_BLOCK``; resumed) and an async run (control; killed at
+    merge event ``RESUME_KILL_AT_MERGE``; its newest checkpoint
+    garbage-corrupted, then resumed from the one before).  Raises unless
+    each process exits as it must, each resumed report equals its
+    control's, each control launched fedagg as often as its records imply
+    and each resumed run launched it; returns what the phase prints, with
+    each finished process's fedagg record (its shapes are checked by the
+    caller)."""
+    procs = []
+
+    def cli(tag, flags, expect):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", SIM_CLI_MAIN] + base + flags,
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        procs.append({"run": tag, "flags": flags,
+                      "exit_code": proc.returncode,
+                      "seconds": time.perf_counter() - t0})
+        if proc.returncode != expect:
+            raise AssertionError(f"resume {tag}: exit {proc.returncode}, "
+                                 f"expected {expect}: "
+                                 f"{proc.stderr[-2000:]}")
+        return proc
+
+    out, fedagg = {}, {}
+    for mode, extra, kill in (
+            ("sync", [], ["--kill-mid-block", str(RESUME_KILL_MID_BLOCK)]),
+            ("async", ["--mode", "async"],
+             ["--kill-at-round", str(RESUME_KILL_AT_MERGE)])):
+        ck = str(out_dir / f"ckpt_{mode}")
+        ctrl, res = (str(out_dir / f"{mode}_{t}.json")
+                     for t in ("control", "resumed"))
+        cli(f"{mode}_control", extra + ["--report-out", ctrl], 0)
+        cli(f"{mode}_killed", extra + ["--ckpt-dir", ck] + kill, -9)
+        steps = manager_cls(ck).steps()
+        resume = ["--ckpt-dir", ck, "--resume", "--report-out", res]
+        if mode == "async":
+            resume += ["--corrupt-ckpt", "garbage"]
+        proc = cli(f"{mode}_resumed", extra + resume, 0)
+        if mode == "async" and (f"skipping checkpoint step {steps[-1]}"
+                                not in proc.stderr):
+            raise AssertionError("the resumed async run did not skip the "
+                                 f"corrupted step {steps[-1]}: "
+                                 f"{proc.stderr[-2000:]}")
+        for tag, path in (("control", ctrl), ("resumed", res)):
+            with open(fedagg_record_path(path)) as f:
+                rec = json.load(f)
+            fedagg[f"{mode}_{tag}"] = rec
+            want = rec.get("expected_launches", 1)
+            if (rec["launches"] != want if tag == "control"
+                    else rec["launches"] < want):
+                raise AssertionError(f"resume {mode}_{tag}: fedagg launched "
+                                     f"{rec['launches']} times, expected "
+                                     f"{'' if tag == 'control' else '>= '}"
+                                     f"{want}")
+        diffs = compare_reports(ctrl, res)
+        with open(res) as f:
+            crc = json.load(f)["params_crc32"]
+        if diffs or not crc:
+            raise AssertionError(f"resumed {mode} report differs from the "
+                                 f"control: {diffs[:10]}")
+        with open(Path(ck) / "MANIFEST.json") as f:
+            kept = json.load(f)["checkpoints"]
+        out[mode] = {"steps_kept_at_kill": steps,
+                     "resumed_from": steps[-2] if mode == "async"
+                     else steps[-1],
+                     "compare_reports_diffs": len(diffs),
+                     "params_crc32": crc,
+                     "checkpoint_bytes": {
+                         str(e["step"]): sum(v["bytes"] for v in
+                                             e["files"].values())
+                         for e in kept}}
+    # seconds per checkpoint write: the newest sync payload, written again
+    _, meta, arrays = manager_cls(str(out_dir / "ckpt_sync")).load_latest()
+    mgr = manager_cls(str(out_dir / "write_timing"), keep=1)
+    write_s = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        mgr.save(i, meta, arrays)
+        write_s.append(time.perf_counter() - t0)
+    out["write_seconds"] = write_s
+    out["write_bytes"] = sum(a.nbytes for a in arrays.values())
+    out["processes"] = procs
+    out["fedagg"] = fedagg
+    return out
 
 
 def main():
@@ -493,10 +677,13 @@ def main():
     from repro_torch.kernels.distill import ops as d_ops, ref as d_ref
     from repro_torch.kernels.fedagg import ops as f_ops, ref as f_ref
     from repro_torch.kernels.flash import ops as a_ops, ref as a_ref
+    from repro_torch.ckpt.manifest import CheckpointManager
+    from repro_torch.ckpt.run_state import make_checkpointer
     from repro_torch.launch import fl_train
     from repro_torch.obs import make_observability
     from repro_torch.obs import validate as obs_validate
     from repro_torch.sim import HeterogeneitySim, SimConfig, make_trace
+    from repro_torch.sim.faults import compare_reports
 
     def zero_counts():
         f_ops.weighted_aggregate.launches = 0
@@ -701,9 +888,10 @@ def main():
 
     def simulate(R, where="cuda", n_part=40, samples=2400, width=1.0,
                  policy="buffer", rounds=SIM_ROUNDS, eval_every=4,
-                 compact_to=4):
+                 compact_to=4, checkpoint=None, **sim_kw):
         """One simulator run on a fresh engine (trace events mutate the
-        participants and the assignment); counts set to 0 just before
+        participants and the assignment), with the run-state checkpointer
+        ``checkpoint`` if one is given; counts set to 0 just before
         ``sim.run`` and read just after."""
         p, c, tst = federation(n_part, samples, 3)
         e = ShapeFedRAC(p, c, cnn_family(base_width=width), srv.FLConfig(
@@ -715,8 +903,9 @@ def main():
                                         seed=SIM_TRACE_SEED),
                           SimConfig(rounds=rounds, mar_policy=policy,
                                     schedule="parallel",
-                                    eval_every=eval_every),
-                          obs=make_observability(trace=False))
+                                    eval_every=eval_every, **sim_kw),
+                          obs=make_observability(trace=False),
+                          checkpoint=checkpoint)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -941,6 +1130,159 @@ def main():
           "summary": json.loads(proc.stdout.strip().splitlines()[-1])[
               "summary"]})
 
+    # 6d. the async server on sim_main's configuration ---------------------
+    # run-to-run deterministic cuDNN (set since phase 6, said again here):
+    # (a) compares two runs bit for bit
+    torch.backends.cudnn.deterministic = True
+    anchor = {"sync": simulate(4), "async": simulate(4, mode="async",
+                                                      max_staleness=0)}
+    anchor_checks = {k: check_sim(r, banked=True) for k, r in anchor.items()}
+    rs, ra = anchor["sync"]["report"], anchor["async"]["report"]
+    if sim_host_rows_per_cluster(ra) != sim_host_rows_per_cluster(rs):
+        raise AssertionError("async at max_staleness=0: host fields differ "
+                             "from the sync buffered run")
+    compared = {"records": len(rs.rows), "plane_elements": 0}
+    for f in ("mean_loss", "acc"):
+        got = [getattr(c, f) for r in ra.rows for c in r.clusters]
+        want = [getattr(c, f) for r in rs.rows for c in r.clusters]
+        if not all(a == b or (a != a and b != b)
+                   for a, b in zip(got, want)) or len(got) != len(want):
+            raise AssertionError(f"async at max_staleness=0: per-round "
+                                 f"{f} differs from the sync buffered run")
+        compared[f] = len(got)
+    for l, p in anchor["sync"]["sim"].params.items():
+        ps = anchor["sync"]["eng"].plane_of(l, p)
+        pa = anchor["async"]["eng"].plane_of(
+            l, anchor["async"]["sim"].params[l])
+        if not torch.equal(ps, pa):
+            raise AssertionError(
+                f"async at max_staleness=0: level {l} plane differs from "
+                f"the sync buffered run by {float((ps - pa).abs().max())}")
+        compared["plane_elements"] += ps.numel()
+    async_runs = {w: simulate(4, mode="async", max_staleness=None)
+                  for w in ("cold", "warm")}
+    async_checks = {w: check_sim(r, banked=True)
+                    for w, r in async_runs.items()}
+    ar = async_runs["cold"]["report"]
+    if sim_host_rows(async_runs["warm"]["report"]) != sim_host_rows(ar):
+        raise AssertionError("two async runs of one trace disagree on the "
+                             "host telemetry")
+    # conservation is checked on each cluster record a merge files
+    conservation = {w: r["sim"].conservation_checks
+                    for w, r in async_runs.items()}
+    for w, r in async_runs.items():
+        filed = sum(len(x.clusters) for x in r["report"].rows)
+        if conservation[w] != filed:
+            raise AssertionError(f"async {w}: conservation checked on "
+                                 f"{conservation[w]} of {filed} records")
+    # fedagg against its plain version at every (C, D) of these runs
+    async_shapes = sorted(set().union(*(r["eng"].fedagg_shapes for r in
+                                        list(anchor.values())
+                                        + list(async_runs.values()))))
+    async_fed_err = {f"{C}x{D}": check_fedagg(torch, f_ops, f_ref, dev, C,
+                                              D)[2] for C, D in async_shapes}
+    areg = ar.registry
+    merges = int(areg.counter("async/merges").value)
+    emit({"phase": "async_main", "config": "sim_main's, mode='async'",
+          "cudnn_deterministic": True,
+          "anchor_max_staleness_0": {
+              "bit_equal_compared": compared,
+              "sim_run_seconds": {k: r["seconds"]
+                                  for k, r in anchor.items()},
+              "peak_mem_bytes": {k: r["peak_mem_bytes"]
+                                 for k, r in anchor.items()},
+              "checks": anchor_checks},
+          "unbounded": {
+              "sim_run_seconds": {w: r["seconds"]
+                                  for w, r in async_runs.items()},
+              "peak_mem_bytes": {w: r["peak_mem_bytes"]
+                                 for w, r in async_runs.items()},
+              "merges": merges,
+              "conservation_checks": conservation,
+              "version_lag": {k.rsplit("/", 1)[1]: g.value
+                              for k, g in sorted(areg.gauges.items())
+                              if k.startswith("async/version_lag/")},
+              "staleness": areg.histogram("async/staleness").summary(),
+              "async_wall_clock_s": areg.gauge("async/wall_clock_s").value,
+              "sync_simulated_wall_clock_s": rs.summary()["wall_clock_s"],
+              "banked_total": ar.summary()["banked_total"],
+              "flushed_total": ar.summary()["flushed_total"],
+              "final_acc": ar.summary()["final_acc"],
+              "checks": async_checks},
+          "fedagg_shapes_max_abs_err": async_fed_err,
+          "fedagg_tolerance": {"rtol": FEDAGG_RTOL, "atol": FEDAGG_ATOL}})
+    for r in list(anchor.values()) + list(async_runs.values()):
+        del r["eng"], r["sim"]
+    torch.cuda.empty_cache()
+
+    # 6e. crash-safe resume ------------------------------------------------
+    res_dir = ROOT / "build" / "chip_smoke" / "resume"
+    shutil.rmtree(res_dir, ignore_errors=True)
+    res_dir.mkdir(parents=True)
+    # in process: the anchor's sync run and the unbounded async run, each
+    # without checkpoints and then with one at every boundary (a round; a
+    # merge event in async mode): the same bits, and what the writes cost
+    ckpt_cost = {}
+    for mode, kw in (("sync", {}),
+                     ("async", {"mode": "async", "max_staleness": None})):
+        ck = make_checkpointer(str(res_dir / f"in_process_{mode}"), every=1,
+                               keep=3)
+        writes = []
+
+        def timed_save(*a, _save=ck.save, _writes=writes):
+            t0 = time.perf_counter()
+            path = _save(*a)
+            _writes.append(time.perf_counter() - t0)
+            return path
+
+        ck.save = timed_save
+        ref = simulate(4, **kw)
+        run = simulate(4, checkpoint=ck, **kw)
+        if sim_host_rows(run["report"]) != sim_host_rows(ref["report"]):
+            raise AssertionError(f"checkpointed {mode} run: host fields "
+                                 "differ from the run without checkpoints")
+        for l, p in run["sim"].params.items():
+            if not torch.equal(run["eng"].plane_of(l, p), ref["eng"].plane_of(
+                    l, ref["sim"].params[l])):
+                raise AssertionError(f"checkpointed {mode} run: level {l} "
+                                     "plane differs from the run without "
+                                     "checkpoints")
+        with open(res_dir / f"in_process_{mode}" / "MANIFEST.json") as f:
+            kept = json.load(f)["checkpoints"]
+        ckpt_cost[mode] = {
+            "sim_run_seconds": run["seconds"],
+            "sim_run_seconds_without": ref["seconds"],
+            "writes": len(writes), "write_seconds": writes,
+            "overhead_seconds_per_write":
+                (run["seconds"] - ref["seconds"]) / len(writes),
+            "checkpoint_bytes": {str(e["step"]): sum(
+                v["bytes"] for v in e["files"].values()) for e in kept}}
+        del run["eng"], run["sim"], ref["eng"], ref["sim"]
+    torch.cuda.empty_cache()
+    # through the launcher, full width
+    resume_base = ["--trace", "mixed", "--participants", "40", "--samples",
+                   "2400", "--base-width", "1.0", "--compact-to", "4",
+                   "--rounds", str(SIM_ROUNDS), "--rounds-per-dispatch", "4",
+                   "--mar-policy", "buffer", "--staleness-discount", "0.6",
+                   "--eval-every", "4", "--seed", str(SIM_TRACE_SEED)]
+    libs = {n: _build.library_path(n).stat().st_mtime_ns
+            for n in _build.SOURCES}
+    resumed = resume_runs(resume_base, res_dir, env, compare_reports,
+                          CheckpointManager)
+    res_shapes = sorted({tuple(s) for rec in resumed["fedagg"].values()
+                         for s in rec["shapes"]})
+    res_fed_err = {f"{C}x{D}": check_fedagg(torch, f_ops, f_ref, dev, C,
+                                            D)[2] for C, D in res_shapes}
+    emit({"phase": "resume", "flags": resume_base,
+          "participants": "sample_profiles(40, seed=3): the launcher's "
+                          "Table-III resampling",
+          "kernel_libraries_rebuilt": libs != {
+              n: _build.library_path(n).stat().st_mtime_ns
+              for n in _build.SOURCES},
+          "in_process_checkpoint_cost": ckpt_cost, **resumed,
+          "fedagg_shapes_max_abs_err": res_fed_err,
+          "fedagg_tolerance": {"rtol": FEDAGG_RTOL, "atol": FEDAGG_ATOL}})
+
     # 7. LM main path, OLMo-1B width --------------------------------------
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1069,6 +1411,7 @@ def main():
                for k in cnn_launches}
     by_path["fedagg"]["sim_main"] = sim_runs["cold"]["launches"]["fedagg"]
     by_path["fedagg"]["sim_legacy"] = legacy["launches"]["fedagg"]
+    by_path["fedagg"]["async_main"] = async_runs["cold"]["launches"]["fedagg"]
     emit({"kernels": [
         {"name": "fedagg", "route": "cuda",
          "source": "src/repro_torch/kernels/fedagg/csrc/fedagg.cu",

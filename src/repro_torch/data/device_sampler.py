@@ -15,8 +15,16 @@ through ``FedRAC._draw_indices``.
 ``balanced_indices`` realizes §IV-C class-balanced resampling as a fixed-
 shape draw: batch slots go round-robin over each member's present classes,
 then each slot draws uniformly within its class.
+
+``stream_fingerprint`` is a CRC32 of a probe draw of this stream, which a
+run-state checkpoint records and a resume checks.  Since the stream is not
+JAX's, neither is the fingerprint: a checkpoint the JAX package wrote does
+not resume a port engine (it fails the check with ``CheckpointError``, as a
+checkpoint of another seed does).
 """
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
@@ -37,6 +45,18 @@ def member_seed(seed: int, r: int, slot: int) -> int:
     h = _splitmix64(h ^ (int(r) & _MASK64))
     h = _splitmix64(h ^ (int(slot) & _MASK64))
     return h >> 1
+
+
+def stream_fingerprint(seed: int, r: int, probe: int = 4) -> int:
+    """CRC32 of a canonical probe draw for round ``r`` under ``seed``.
+
+    Every draw is a pure function of (seed, absolute round, global member
+    slot), so this fingerprint, written into a run-state checkpoint and
+    recomputed at resume, proves that the resumed process generates the
+    stream the checkpoint was trained under: a changed seed or sampler
+    fails loudly instead of silently diverging."""
+    idx = uniform_indices(seed, r, 2, probe, np.full(probe, 1 << 20))
+    return zlib.crc32(idx.astype(np.int32).tobytes()) & 0xFFFFFFFF
 
 
 def _uniform(seed: int, r: int, slot: int, shape) -> np.ndarray:

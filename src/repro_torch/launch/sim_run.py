@@ -14,22 +14,35 @@ between events.  ``--metrics-out``, ``--trace-out``, ``--report-out`` and
 ``--fence`` write the observability artifacts that
 ``python -m repro_torch.obs.validate`` checks.
 
+``--mode async`` swaps the global round barrier for the continuous-time
+async parameter server: per-cluster clocks, pull-version/push-delta
+dispatch, streaming staleness-discounted merges, with ``--max-staleness``
+bounding how far any cluster may lead the slowest (0 = synchronized
+arrivals ≡ the sync buffered path, bit-for-bit).
+
+The crash-safety surface lives here too: ``--ckpt-dir`` arms round-boundary
+run-state checkpoints (cadence ``--ckpt-every``, retention ``--ckpt-keep``),
+``--resume`` continues from the newest *valid* one bit-identically, SIGTERM/
+SIGINT flush telemetry and write a final checkpoint before exiting
+``128+signum``, and the fault-injection knobs (``--kill-at-round``,
+``--kill-mid-block``, ``--corrupt-ckpt``) drive the kill-and-resume tests.
+
 The flags are the JAX launcher's, plus ``--device`` (``cuda`` by default;
 without a card it raises).  What is not ported yet exits nonzero naming its
-ROADMAP item: ``--mode async`` and ``--max-staleness`` (item 7),
-``--fleet-size`` (item 7b),
-``--mesh-shape`` and ``--tp-forward`` (item 11), and the checkpoint and
-fault-injection flags ``--ckpt-*``, ``--resume``, ``--kill-*`` and
-``--corrupt-ckpt`` (item 8).
+ROADMAP item: ``--fleet-size`` (item 7b), ``--mesh-shape`` and
+``--tp-forward`` (item 11).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import signal
 import zlib
 
 import numpy as np
 
+from repro_torch.ckpt.run_state import make_checkpointer
 from repro_torch.core import server as srv
 from repro_torch.core.families import cnn_family
 from repro_torch.core.resources import (LAMBDA_EQUAL, LAMBDA_PAPER,
@@ -41,22 +54,15 @@ from repro_torch.data.synthetic import (SPECS, make_classification,
 from repro_torch.obs import make_observability
 from repro_torch.sim import (SCENARIOS, HeterogeneitySim, SimConfig,
                              make_trace, sample_profiles, scenario_knobs)
+from repro_torch.sim.faults import (CORRUPTION_MODES, FaultInjector,
+                                    FaultPlan, GracefulShutdown,
+                                    corrupt_checkpoint)
 
 # flag -> (the value it has when not given, what it waits for)
 _NOT_PORTED = {
-    "mode": ("sync", "the async server, ROADMAP item 7 (async part)"),
-    "max_staleness": (None, "the async server, ROADMAP item 7 (async "
-                            "part)"),
     "fleet_size": (0, "the vectorized fleet simulator, ROADMAP item 7b"),
     "mesh_shape": (None, "meshes and tensor parallelism, ROADMAP item 11"),
     "tp_forward": (None, "meshes and tensor parallelism, ROADMAP item 11"),
-    "ckpt_dir": (None, "checkpoints and resume, ROADMAP item 8"),
-    "ckpt_every": (None, "checkpoints and resume, ROADMAP item 8"),
-    "ckpt_keep": (None, "checkpoints and resume, ROADMAP item 8"),
-    "resume": (False, "checkpoints and resume, ROADMAP item 8"),
-    "kill_at_round": (None, "fault injection, ROADMAP item 8"),
-    "kill_mid_block": (None, "fault injection, ROADMAP item 8"),
-    "corrupt_ckpt": (None, "fault injection, ROADMAP item 8"),
 }
 
 
@@ -83,8 +89,50 @@ def _trace_knobs(args) -> dict:
     return explicit
 
 
+def _crash_harness(args):
+    """(RunCheckpointer | None, FaultInjector | None) from the crash-safety
+    flags; ``--corrupt-ckpt`` damages the newest checkpoint *before* the
+    resume read so the degrade-to-previous-valid path is exercised."""
+    if args.resume and not args.ckpt_dir:
+        raise SystemExit("--resume requires --ckpt-dir")
+    if args.corrupt_ckpt and not args.ckpt_dir:
+        raise SystemExit("--corrupt-ckpt requires --ckpt-dir")
+    if args.kill_mid_block is not None and args.rounds_per_dispatch <= 1:
+        raise SystemExit("--kill-mid-block needs --rounds-per-dispatch >1 "
+                         "(mid-block faults live inside dispatch blocks)")
+    if args.corrupt_ckpt:
+        path = corrupt_checkpoint(args.ckpt_dir, args.corrupt_ckpt)
+        print(f"# corrupted newest checkpoint ({args.corrupt_ckpt}): {path}")
+    ckpt = None
+    if args.ckpt_dir:
+        ckpt = make_checkpointer(args.ckpt_dir, every=args.ckpt_every,
+                                 keep=args.ckpt_keep, resume=args.resume)
+    faults = None
+    if args.kill_at_round is not None or args.kill_mid_block is not None:
+        faults = FaultInjector(FaultPlan(kill_at_round=args.kill_at_round,
+                                         kill_mid_block=args.kill_mid_block))
+    return ckpt, faults
+
+
+@contextlib.contextmanager
+def _graceful_signals():
+    """SIGTERM/SIGINT raise ``GracefulShutdown`` inside the run loop so the
+    launcher can flush telemetry and write a final checkpoint; the original
+    handlers are restored on exit."""
+    def handler(signum, frame):
+        raise GracefulShutdown(signum)
+    old = {s: signal.signal(s, handler)
+           for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        yield
+    finally:
+        for s, h in old.items():
+            signal.signal(s, h)
+
+
 def _params_crc32(params: dict) -> dict:
-    """Per-level CRC32 over the raveled parameter bytes."""
+    """Per-level CRC32 over the raveled parameter bytes — the report's
+    bit-exactness witness for the kill-and-resume comparison."""
     out = {}
     for lvl in sorted(params):
         crc = 0
@@ -106,6 +154,23 @@ def _flush_obs(args, obs) -> None:
         print(f"# trace: {len(obs.tracer.events())} spans -> "
               f"{args.trace_out}"
               + (" (fenced timings)" if args.fence else ""))
+
+
+def _graceful_exit(args, sim, obs, signum) -> None:
+    """The SIGTERM/SIGINT path: final checkpoint, telemetry flush, partial
+    report, nonzero exit (128+signum, the shell convention)."""
+    step = sim.save_now()
+    print(f"# signal {signum}: "
+          + (f"final checkpoint at round {step}" if step is not None
+             else "no checkpoint written (none armed or no round done)"))
+    _flush_obs(args, obs)
+    if args.report_out and sim.report is not None:
+        doc = sim.report.to_dict()
+        doc["interrupted"] = signum
+        with open(args.report_out, "w") as f:
+            json.dump(doc, f, default=float)
+        print(f"# partial report -> {args.report_out}")
+    raise SystemExit(128 + signum)
 
 
 def build(args):
@@ -136,6 +201,7 @@ def build(args):
 
 def run(args):
     _refuse_not_ported(args)
+    ckpt, faults = _crash_harness(args)
     eng, testb = build(args)
     members = {l: len(v) for l, v in eng.assignment.members.items()}
     print(f"device={eng.device} k_optimal={eng.k_optimal} "
@@ -149,8 +215,14 @@ def run(args):
     sim = HeterogeneitySim(eng, trace, SimConfig(
         rounds=args.rounds, mar_policy=args.mar_policy,
         schedule=args.schedule, eval_every=args.eval_every,
-        select=args.select, select_budget=args.select_budget), obs=obs)
-    report = sim.run(testb)
+        select=args.select, select_budget=args.select_budget,
+        mode=args.mode, max_staleness=args.max_staleness), obs=obs,
+        checkpoint=ckpt, faults=faults)
+    with _graceful_signals():
+        try:
+            report = sim.run(testb)
+        except GracefulShutdown as e:
+            _graceful_exit(args, sim, obs, e.signum)
     print(report.timeline())
     stats = eng.compile_stats()
     print(f"# round programs={len(stats)} builds={sum(stats.values())} "
@@ -186,11 +258,16 @@ def main(argv=None):
     ap.add_argument("--schedule", default="parallel",
                     choices=["parallel", "sequential"])
     ap.add_argument("--mode", default="sync", choices=["sync", "async"],
-                    help="async: the continuous-time async server (not "
-                         "ported yet, ROADMAP item 7)")
+                    help="async: continuous-time parameter server — each "
+                         "cluster runs on its own clock, pulls the plane "
+                         "version, pushes its delta at its own completion "
+                         "time (streaming staleness-discounted merge); "
+                         "requires --schedule parallel")
     ap.add_argument("--max-staleness", type=int, default=None, metavar="K",
                     help="async: max version lead of any cluster over the "
-                         "slowest one (not ported yet, ROADMAP item 7)")
+                         "slowest one; 0 = synchronized arrivals "
+                         "(reproduces the sync buffered path bit-exactly), "
+                         "omitted = unbounded")
     ap.add_argument("--dropout-rate", type=float, default=None,
                     help="per-round dropout probability (dropout/mixed "
                          "traces; scenario default when omitted)")
@@ -238,19 +315,37 @@ def main(argv=None):
                          "pairs with repro_torch.obs.validate --report")
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="arm crash-safe run-state checkpoints: versioned "
+                         "manifest + CRC32 snapshots of planes, bank, "
+                         "sampler position, event queue, participant "
+                         "resources and metrics tables at round boundaries")
+    ap.add_argument("--ckpt-every", type=int, default=1, metavar="R",
+                    help="checkpoint cadence in rounds (default 1)")
+    ap.add_argument("--ckpt-keep", type=int, default=3, metavar="K",
+                    help="retain the last K checkpoints (default 3)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest VALID checkpoint under "
+                         "--ckpt-dir (corrupt/truncated ones are skipped "
+                         "with a warning); bit-identical to the "
+                         "uninterrupted run")
+    ap.add_argument("--kill-at-round", type=int, default=None, metavar="R",
+                    help="fault injection: SIGKILL this process at the "
+                         "first round boundary >= R (after the boundary "
+                         "checkpoint); with --mode async, R counts MERGE "
+                         "EVENTS (the async checkpoint cadence)")
+    ap.add_argument("--kill-mid-block", type=int, default=None, metavar="R",
+                    help="fault injection: SIGKILL inside the dispatch "
+                         "block covering round R, after its programs ran "
+                         "but before its rounds are recorded")
+    ap.add_argument("--corrupt-ckpt", default=None, choices=CORRUPTION_MODES,
+                    help="damage the newest checkpoint under --ckpt-dir "
+                         "before anything else runs (degradation testing)")
     # not ported yet: each exits nonzero naming its ROADMAP item
     ap.add_argument("--fleet-size", type=int, default=0, metavar="N")
     ap.add_argument("--mesh-shape", default=None, metavar="DATA[xMODEL]")
     ap.add_argument("--tp-forward", default=None,
                     action=argparse.BooleanOptionalAction)
-    ap.add_argument("--ckpt-dir", default=None, metavar="DIR")
-    ap.add_argument("--ckpt-every", type=int, default=None, metavar="R")
-    ap.add_argument("--ckpt-keep", type=int, default=None, metavar="K")
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--kill-at-round", type=int, default=None, metavar="R")
-    ap.add_argument("--kill-mid-block", type=int, default=None, metavar="R")
-    ap.add_argument("--corrupt-ckpt", default=None,
-                    choices=["truncate", "garbage", "delete", "manifest"])
     args = ap.parse_args(argv)
     return run(args)
 

@@ -10,11 +10,13 @@ bytes and MAR violations.  Straggler and dropout decisions become step-mask
 rows and weights of the engine's batched cluster update, so the simulator
 and the training path share one program.
 
-Ported: the synchronous engine on both paths, traces (scenarios and the
+Ported: the synchronous engine on both paths, the continuous-time async
+server (``AsyncPlaneServer``, ``MasterBlock``, ``mode="async"``), run-state
+checkpoints and fault injection (``sim.faults``), traces (scenarios and the
 columnar ``FleetTrace``), the event queue and clocks, and the report.  Not
-yet: the async server (``AsyncPlaneServer``, ``MasterBlock``; ROADMAP item
-7) and the vectorized fleet simulator (``FleetSim``; item 7b).
+yet: the vectorized fleet simulator (``FleetSim``; ROADMAP item 7b).
 """
+from repro_torch.sim.async_server import AsyncPlaneServer, MasterBlock
 from repro_torch.sim.clock import ClusterClock, EventQueue, SimClock
 from repro_torch.sim.engine import HeterogeneitySim, SimConfig
 from repro_torch.sim.events import (Arrival, ClusterDone, Departure, Event,
@@ -26,9 +28,10 @@ from repro_torch.sim.traces import (SCENARIOS, FleetTrace, Trace,
                                     sample_profiles, scenario_knobs)
 
 __all__ = [
-    "Arrival", "ClusterClock", "ClusterDone", "ClusterRoundStats",
-    "Departure", "Event", "EventQueue", "FleetTrace", "HeterogeneitySim",
-    "ResourceDrift", "RoundRecord", "SCENARIOS", "SimClock", "SimConfig",
-    "SimReport", "SpikeEnd", "StragglerSpike", "Trace", "event_priority",
-    "make_fleet_trace", "make_trace", "sample_profiles", "scenario_knobs",
+    "Arrival", "AsyncPlaneServer", "ClusterClock", "ClusterDone",
+    "ClusterRoundStats", "Departure", "Event", "EventQueue", "FleetTrace",
+    "HeterogeneitySim", "MasterBlock", "ResourceDrift", "RoundRecord",
+    "SCENARIOS", "SimClock", "SimConfig", "SimReport", "SpikeEnd",
+    "StragglerSpike", "Trace", "event_priority", "make_fleet_trace",
+    "make_trace", "sample_profiles", "scenario_knobs",
 ]

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the engine never
-falls back to the CPU when no card is there."""
+``chip_smoke.py`` imports JAX, the JAX package or ``msgpack`` (which the
+card's machine lacks: the port writes the checkpoint format itself), and the
+engine never falls back to the CPU when no card is there."""
 import ast
 import pathlib
 
@@ -12,7 +13,7 @@ from repro_torch.core.families import mlp_family
 from repro_torch.launch import fl_train
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _port_files():

@@ -56,12 +56,9 @@ def test_sim_one_round_all_banked_then_offline_flush_matches_jax():
 def test_sim_refuses_what_is_not_ported():
     _, t, _ = engines(1, "drop", cls=t_srv.FedRAC)
     trace = make_trace("stable", N_PART, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        HeterogeneitySim(t, trace, SimConfig(mode="async"))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        HeterogeneitySim(t, trace, SimConfig(), checkpoint=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        HeterogeneitySim(t, trace, SimConfig()).save_now()
+    with pytest.raises(ValueError, match="parallel"):
+        HeterogeneitySim(t, trace, SimConfig(mode="async",
+                                             schedule="sequential"))
     with pytest.raises(ValueError, match="buffered"):
         HeterogeneitySim(t, trace, SimConfig(mar_policy="buffer"))
     with pytest.raises(ValueError, match="unknown mar_policy"):
@@ -101,14 +98,8 @@ def test_sim_run_cpu_json_and_observability(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mode", "async"], "item 7"), (["--max-staleness", "0"], "item 7"),
     (["--fleet-size", "100"], "item 7b"),
-    (["--mesh-shape", "4x2"], "item 11"), (["--no-tp-forward"], "item 11"),
-    (["--ckpt-dir", "x"], "item 8"), (["--ckpt-every", "2"], "item 8"),
-    (["--ckpt-keep", "2"], "item 8"), (["--resume"], "item 8"),
-    (["--kill-at-round", "2"], "item 8"), (["--kill-mid-block", "1"],
-                                           "item 8"),
-    (["--corrupt-ckpt", "garbage"], "item 8")])
+    (["--mesh-shape", "4x2"], "item 11"), (["--no-tp-forward"], "item 11")])
 def test_sim_run_refused_flags_name_their_item(flags, item):
     with pytest.raises(SystemExit) as e:
         sim_run.main(_SMALL + ["--device", "cpu"] + flags)
