@@ -75,7 +75,28 @@ Phases, each printing one JSON line:
   7b. lm_profile each level's init and plane build on the host clock, then
               the same LM training warm, on the host clock and traced;
   8. lm_parity a small LM (MHA and GQA) on the card and on the CPU from the
-              same initial weights; the final planes must agree.
+              same initial weights; the final planes must agree;
+  9. table2   the paper's Table II: Dunn indices at k = 2..6 on Table III
+              under λ = (0.4, 0.4, 0.2) for single-restart k-means (its
+              Lloyd loop on the card), DBSCAN and OPTICS (host numpy); DI
+              values, labels and best k equal to the CPU run's;
+  10. fleet   ``FleetSim`` at 10⁶ participants (``sample_profiles``, a
+              "mixed" ``FleetTrace``, 8 rounds, "buffer", FedCS), sync and
+              async: setup (``fleet_optimal_clusters``) and rounds timed
+              apart, every slot conserved in every round, async wall clock
+              at most sync's, no kernel launch; then at 10⁵ a run killed at
+              round boundary 5 and resumed from its checkpoint gives the
+              uninterrupted run's rows bit for bit;
+  11. paper   the main path of ``examples/torch_fedrac_cnn_full.py`` with
+              its rounds cut from 12 to 4: Fed-RAC, then FedAvg, FedProx,
+              Oort and HeteroFL, each round timed; launch counts as the
+              example's one-round path implies (none); every returned
+              parameter finite and on the card;
+  12. baselines_parity the four baselines at a small width on the card and
+              on the CPU from the same weights: final parameters within
+              the parity tolerance, Oort's choices equal;
+  13. examples ``examples/torch_quickstart.py`` and
+              ``examples/torch_fedrac_sim.py`` as processes on the card.
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no last line.  It exits nonzero at once
@@ -658,6 +679,133 @@ def resume_runs(base, out_dir, env, compare_reports, manager_cls):
     out["processes"] = procs
     out["fedagg"] = fedagg
     return out
+
+
+# ------------------------------------------------------------------ comparison path
+def table2_sweep(C, R, device):
+    """``benchmarks/bench_tables.py``'s Table II, here: the Dunn index at
+    k = 2..6 on Table III under the paper's λ for single-restart k-means
+    (seed 3; its Lloyd loop on ``device``), DBSCAN and OPTICS (host numpy),
+    with each method's labels, best k and seconds."""
+    import numpy as np
+    Vb = R.unit_normalize(R.TABLE_III)
+    S = R.similarity_matrix(Vb, R.LAMBDA_PAPER)
+    X = Vb * np.sqrt(np.asarray(R.LAMBDA_PAPER))
+    out = {}
+    for method in ("kmeans", "dbscan", "optics"):
+        t0 = time.perf_counter()
+        dis, labels = {}, {}
+        for k in range(2, 7):
+            if method == "kmeans":
+                lab, _ = C.kmeans(X, k, seed=3, restarts=1, device=device)
+            elif method == "dbscan":
+                lab = C.dbscan_at_k(X, k)
+            else:
+                lab = C.optics_at_k(X, k)
+            dis[str(k)] = None if lab is None else C.dunn_index(S, lab)
+            labels[str(k)] = None if lab is None else lab.tolist()
+        out[method] = {
+            "seconds": time.perf_counter() - t0, "di": dis, "labels": labels,
+            "best_k": int(max((v, k) for k, v in dis.items()
+                              if v is not None)[1])}
+    return out
+
+
+def fleet_rows(report):
+    """Every field of every ``FleetRoundRecord``, as plain lists."""
+    return [{f: (v.tolist() if hasattr(v, "tolist") else v)
+             for f, v in vars(r).items()} for r in report.rows]
+
+
+def fleet_resume(n, out_dir, cfg_kw, device):
+    """The fleet simulator at ``n`` participants: uninterrupted, then killed
+    at round boundary 5 (in process) with a checkpoint every 2 rounds,
+    then resumed by a fresh simulator.  Returns the two (rows, summary,
+    levels) and the seconds of each run."""
+    from repro_torch.ckpt.run_state import make_checkpointer
+    from repro_torch.core.resources import Fleet
+    from repro_torch.sim import (FleetSim, FleetSimConfig, make_fleet_trace,
+                                 sample_profiles)
+    from repro_torch.sim.faults import (FaultInjector, FaultPlan,
+                                        SimulatedCrash)
+    V = sample_profiles(n, seed=3)
+    trace = make_fleet_trace("mixed", n, cfg_kw["rounds"], seed=3)
+
+    def one(ckpt=False, resume=False, kill=None):
+        ck = (make_checkpointer(str(out_dir), every=2, resume=resume)
+              if ckpt else None)
+        sim = FleetSim(Fleet.from_matrix(V.copy()), trace,
+                       FleetSimConfig(**cfg_kw), checkpoint=ck,
+                       faults=(FaultInjector(FaultPlan(
+                           kill_at_round=kill, raise_instead=True))
+                           if kill is not None else None), device=device)
+        t0 = time.perf_counter()
+        try:
+            rep = sim.run()
+        except SimulatedCrash:
+            return None, time.perf_counter() - t0
+        return ((fleet_rows(rep), rep.summary(), rep.levels.tolist()),
+                time.perf_counter() - t0)
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    ctrl, ctrl_s = one()
+    killed, killed_s = one(ckpt=True, kill=5)
+    if killed is not None:
+        raise AssertionError("the fleet run was not killed at round 5")
+    resumed, resumed_s = one(ckpt=True, resume=True)
+    return ctrl, resumed, {"control": ctrl_s, "killed": killed_s,
+                           "resumed": resumed_s}
+
+
+def baseline_runs(bl, loss_fn, tree_map, parts, cd, test, where, bcfg,
+                  init, hetero_init):
+    """The four baselines on ``where`` from the given initial weights:
+    name -> (params on the CPU, accuracy curve); Oort's chosen pids under
+    ``"oort_chosen"``."""
+    def moved(p):
+        return tree_map(lambda x: x.to(where), p)
+
+    def host(p):
+        return tree_map(lambda x: x.detach().cpu(), p)
+
+    out = {}
+    for name, fn in (("fedavg", bl.fedavg), ("fedprox", bl.fedprox)):
+        p, h = fn(loss_fn, moved(init), parts, cd, test, bcfg)
+        out[name] = (host(p), h)
+    # Oort's choices, read through the selection hook of ``_run_rounds``
+    chosen, real = [], bl._run_rounds
+
+    def spy(*a, select=None, **kw):
+        def logged(ps, losses, r):
+            picked = select(ps, losses, r)
+            chosen.append([q.pid for q in picked])
+            return picked
+        return real(*a, select=logged, **kw)
+
+    bl._run_rounds = spy
+    try:
+        p, h = bl.oort(loss_fn, moved(init), parts, cd, test, bcfg,
+                       flops_per_sample=1e6, model_bytes=2e5)
+    finally:
+        bl._run_rounds = real
+    out["oort"] = (host(p), h)
+    out["oort_chosen"] = chosen
+    levels = {p.pid: min(2, 3 * i // len(parts)) for i, p in enumerate(parts)}
+    p, h = bl.heterofl(parts, cd, levels, test, bcfg, in_channels=1,
+                       classes=10, levels=3, base_width=0.125,
+                       init_params=hetero_init, device=where)
+    out["heterofl"] = (host(p), h)
+    return out
+
+
+def load_example(name):
+    """An example file of ``examples/`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main():
@@ -1402,6 +1550,263 @@ def main():
                                        rtol=LM_PARITY_RTOL,
                                        atol=LM_PARITY_ATOL)
 
+    # 9. the Table II clustering methods, card == CPU ---------------------
+    from repro_torch.core import baselines as bl, clustering as clu
+    from repro_torch.core import resources as res_mod
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import cnn as cnn_mod
+    from repro_torch.sim import fleet as fleet_mod
+    from repro_torch.sim import (FleetSim, FleetSimConfig, make_fleet_trace,
+                                 sample_profiles)
+    t2 = {w: table2_sweep(clu, res_mod, w) for w in ("cuda", "cpu")}
+    for method in t2["cpu"]:
+        for f in ("di", "labels", "best_k"):
+            if t2["cuda"][method][f] != t2["cpu"][method][f]:
+                raise AssertionError(f"table2 {method}: {f} on the card "
+                                     f"{t2['cuda'][method][f]} != CPU "
+                                     f"{t2['cpu'][method][f]}")
+    emit({"phase": "table2", "table": "TABLE_III", "lam": "LAMBDA_PAPER",
+          "k": [2, 6], "kmeans": "seed 3, one restart, Lloyd loop on the "
+          "card (and on the CPU to compare)", "dbscan_optics": "host numpy",
+          "best_k": {m: r["best_k"] for m, r in t2["cuda"].items()},
+          "di": {m: r["di"] for m, r in t2["cuda"].items()},
+          "seconds": {w: {m: r["seconds"] for m, r in t2[w].items()}
+                      for w in t2},
+          "card_equals_cpu": True})
+
+    # 10. the fleet simulator at 10^6 participants ------------------------
+    import resource
+    zero_counts()
+    n_fleet = 1_000_000
+    fleet_cfg = dict(rounds=8, mar_policy="buffer", select="fedcs",
+                     lam=res_mod.LAMBDA_PAPER, seed=3)
+    t0 = time.perf_counter()
+    V_fleet = sample_profiles(n_fleet, seed=3)
+    fleet_trace = make_fleet_trace("mixed", n_fleet, 8, seed=3)
+    data_s = time.perf_counter() - t0
+    clu_s = []
+    real_foc = fleet_mod.fleet_optimal_clusters
+
+    def timed_foc(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_foc(*a, **kw)
+        torch.cuda.synchronize()
+        clu_s.append(time.perf_counter() - t)
+        return out
+
+    fleet_mod.fleet_optimal_clusters = timed_foc
+    fleet_out = {}
+    try:
+        for mode in ("sync", "async"):
+            t0 = time.perf_counter()
+            fsim = FleetSim(res_mod.Fleet.from_matrix(V_fleet.copy()),
+                            fleet_trace,
+                            FleetSimConfig(mode=mode, **fleet_cfg),
+                            device="cuda")
+            setup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            frep = fsim.run()
+            run_s = time.perf_counter() - t0
+            for row in frep.rows:
+                slots = int((row.active + row.masked + row.dropped
+                             + row.offline + row.unselected
+                             + row.banked).sum())
+                if slots != n_fleet:
+                    raise AssertionError(f"fleet {mode} round {row.round}: "
+                                         f"{slots} of {n_fleet} slots")
+            fsum = frep.summary()
+            fleet_out[mode] = {
+                "setup_seconds": setup_s,
+                "fleet_optimal_clusters_seconds": clu_s[-1],
+                "rounds_seconds": run_s, "k": frep.k,
+                "cluster_sizes": fsum["cluster_sizes"], "mar": frep.mar,
+                "di_values": {str(k): v
+                              for k, v in frep.di_values.items()},
+                "summary": fsum}
+            del fsim, frep
+    finally:
+        fleet_mod.fleet_optimal_clusters = real_foc
+    if not (fleet_out["async"]["summary"]["wall_clock_s"]
+            <= fleet_out["sync"]["summary"]["wall_clock_s"]):
+        raise AssertionError(f"fleet: async wall clock above sync's: "
+                             f"{fleet_out}")
+    fleet_launches = read_counts()
+    if any(fleet_launches.values()):
+        raise AssertionError(f"the fleet path launched {fleet_launches}")
+    # the Lloyd loop on the CPU for the same fleet: k and how many labels
+    # differ (reported; fp32 rounding may move a boundary row)
+    cl_card = real_foc(V_fleet, res_mod.LAMBDA_PAPER, seed=3, device="cuda")
+    cl_cpu = real_foc(V_fleet, res_mod.LAMBDA_PAPER, seed=3, device="cpu")
+    n_resume = 100_000
+    ctrl, resumed, resume_s = fleet_resume(
+        n_resume, ROOT / "build" / "chip_smoke" / "fleet_resume",
+        fleet_cfg, "cuda")
+    if resumed != ctrl:
+        raise AssertionError("fleet resume at 10^5: rows, summary or levels "
+                             "differ from the uninterrupted run")
+    emit({"phase": "fleet", "n": n_fleet, "config": dict(
+              fleet_cfg, lam=list(res_mod.LAMBDA_PAPER),
+              profiles="sample_profiles(n, seed=3)",
+              trace="make_fleet_trace('mixed', n, 8, seed=3)"),
+          "device_work": "the Lloyd loop of fleet_optimal_clusters' k-means "
+                         "(4096-row fit sample) only; the rest is host "
+                         "numpy", "data_seconds": data_s, "modes": fleet_out,
+          "slots_conserved_every_round": True,
+          "async_wall_clock_le_sync": True, "launches": fleet_launches,
+          "lloyd_card_vs_cpu": {
+              "k": [cl_card.k, cl_cpu.k],
+              "labels_differing": int((cl_card.labels
+                                       != cl_cpu.labels).sum())},
+          "resume": {"n": n_resume, "kill_at_round": 5, "ckpt_every": 2,
+                     "bit_identical": True, "seconds": resume_s},
+          "peak_rss_bytes": resource.getrusage(
+              resource.RUSAGE_SELF).ru_maxrss * 1024})
+    del V_fleet, fleet_trace, cl_card, cl_cpu, ctrl, resumed
+
+    # 11. the paper's comparison path: Fed-RAC and the four baselines ------
+    ex = load_example("torch_fedrac_cnn_full")
+    pargs = ex.parse_args(["--rounds", "4", "--device", "cuda"])
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    pparts, pcd, ptest, pshape, pclasses = ex.federation(pargs)
+    peng = ex.fedrac_engine(pargs, pparts, pcd, pshape, pclasses)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pres = peng.train(ptest)
+    torch.cuda.synchronize()
+    fedrac_s = time.perf_counter() - t0
+    marks = []
+    real_eval = bl._eval
+
+    def timed_eval(*a):
+        out = real_eval(*a)            # float() of the accuracy: synchronous
+        marks.append(time.perf_counter())
+        return out
+
+    bl._eval = timed_eval
+    paper_bl = {}
+    try:
+        for name in ex.BASELINES:
+            marks.clear()
+            t0 = time.perf_counter()
+            bparams, hist = ex.run_baseline(name, pargs, pparts, pcd, ptest,
+                                            pshape, pclasses)
+            per_round = [b - a for a, b in zip([t0] + marks, marks)]
+            if len(per_round) != pargs.rounds:
+                raise AssertionError(f"{name}: {len(per_round)} rounds timed")
+            for x in tree_leaves(bparams):
+                if x.device.type != "cuda" or not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"{name}: a parameter is not finite "
+                                         "or not on the card")
+            paper_bl[name] = {"accuracy": hist,
+                              "round_seconds": per_round,
+                              "cold_round_seconds": per_round[0],
+                              "warm_round_seconds":
+                                  sum(per_round[1:]) / (len(per_round) - 1)}
+            del bparams
+    finally:
+        bl._eval = real_eval
+    paper_launches = read_counts()
+    plive = [l for l in range(peng.m) if peng.assignment.members.get(l)]
+    # the example's FLConfig takes the one-round path (rounds_per_dispatch
+    # 1): a pytree FedAvg and the autograd KD loss, no kernel; on the
+    # dispatch path fedagg would run once per round of each live cluster
+    R_disp = peng.cfg.rounds_per_dispatch
+    want_paper = {"fedagg": (peng.cfg.rounds * len(plive) if R_disp > 1
+                             else 0), "distill": 0, "flash": 0}
+    if paper_launches != want_paper:
+        raise AssertionError(f"paper path launches {paper_launches}, "
+                             f"expected {want_paper}")
+    for l, p in list(peng.cluster_params.items()) + [
+            ("master", peng.master_params)]:
+        for x in tree_leaves(p):
+            if x.device.type != "cuda" or not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"Fed-RAC level {l}: a parameter is not "
+                                     "finite or not on the card")
+    emit({"phase": "paper", "example": "examples/torch_fedrac_cnn_full.py",
+          "config": {"dataset": pargs.dataset, "samples": pargs.samples,
+                     "participants": 40, "seed": pargs.seed,
+                     "fedrac": "cnn_family() (base width 0.25), compact_to "
+                               "4, rounds_per_dispatch 1",
+                     "baselines": "lr 0.08, 4 steps of 16 a round; FedAvg, "
+                                  "FedProx, Oort at base width 0.25*0.125, "
+                                  "HeteroFL at 0.25 on 3 levels"},
+          "cut": {"rounds": f"{pargs.rounds} of 12",
+                  "weights": "random, seeded",
+                  "data": "synth-mnist (synthetic)"},
+          "k_optimal": peng.k_optimal, "m": peng.m,
+          "members": {str(l): len(v)
+                      for l, v in peng.assignment.members.items()},
+          "fedrac_history": {str(l): h for l, h in pres.history.items()},
+          "fedrac_final_acc": {str(l): a for l, a in pres.final_acc.items()},
+          "fedrac_global_acc": pres.global_acc,
+          "setup_seconds": setup_s, "fedrac_train_seconds": fedrac_s,
+          "baselines": paper_bl, "launches": paper_launches,
+          "expected_launches": want_paper,
+          # the peak counts what earlier phases still hold on the card
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "held_before_bytes": held_before})
+    del peng, pres, pcd
+    torch.cuda.empty_cache()
+
+    # 12. the baselines, card == CPU ----------------------------------------
+    torch.backends.cudnn.deterministic = True
+    bparts, bcd, btest = federation(8, 600, 3)
+    bcfg = bl.BaselineConfig(rounds=3, steps_per_round=2, local_batch=8,
+                             lr=0.08, seed=3)
+    binit = cnn_mod.init_params(torch.Generator().manual_seed(0),
+                                base_width=0.25 * 0.125)
+    hinit = cnn_mod.init_params(torch.Generator().manual_seed(3),
+                                base_width=0.125)
+    bruns = {w: baseline_runs(bl, ex.loss_fn, tree_map, bparts, bcd, btest,
+                              w, bcfg, binit, hinit)
+             for w in ("cpu", "cuda")}
+    if bruns["cuda"]["oort_chosen"] != bruns["cpu"]["oort_chosen"]:
+        raise AssertionError(f"Oort chose {bruns['cuda']['oort_chosen']} on "
+                             f"the card, {bruns['cpu']['oort_chosen']} on "
+                             "the CPU")
+    bpar = {}
+    for name in ("fedavg", "fedprox", "oort", "heterofl"):
+        share = 0.0
+        for a, b in zip(tree_leaves(bruns["cuda"][name][0]),
+                        tree_leaves(bruns["cpu"][name][0])):
+            torch.testing.assert_close(a, b, rtol=PARITY_RTOL,
+                                       atol=PARITY_ATOL)
+            share = max(share, float(((a - b).abs() / (
+                PARITY_ATOL + PARITY_RTOL * b.abs())).max()))
+        bpar[name] = {"worst_share_of_tolerance": share,
+                      "accuracy": {w: bruns[w][name][1] for w in bruns}}
+    emit({"phase": "baselines_parity", "tolerance": {"rtol": PARITY_RTOL,
+                                                     "atol": PARITY_ATOL},
+          "config": "8 participants, 600 samples, 3 rounds of 2 steps of "
+                    "8; base width 0.25*0.125 (HeteroFL 0.125); "
+                    "deterministic cuDNN",
+          "oort_chosen_equal": True,
+          "oort_chosen": bruns["cuda"]["oort_chosen"], "baselines": bpar})
+    del bruns
+
+    # 13. the examples as processes on the card ---------------------------
+    ex_runs = {}
+    for name in ("torch_quickstart", "torch_fedrac_sim"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable,
+                               str(ROOT / "examples" / f"{name}.py")],
+                              capture_output=True, text=True, timeout=600,
+                              env=env, cwd=ROOT)
+        ex_runs[name] = {"seconds": time.perf_counter() - t0,
+                         "exit_code": proc.returncode,
+                         "last_lines": proc.stdout.strip().splitlines()[-3:]}
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+    emit({"phase": "examples", "device": "cuda (the examples' default)",
+          "runs": ex_runs})
+
     # kernels line, card line, last line -----------------------------------
     D0 = lm_shapes[0][1]
     fed = fed_timed[(C0, D0)]
@@ -1412,6 +1817,9 @@ def main():
     by_path["fedagg"]["sim_main"] = sim_runs["cold"]["launches"]["fedagg"]
     by_path["fedagg"]["sim_legacy"] = legacy["launches"]["fedagg"]
     by_path["fedagg"]["async_main"] = async_runs["cold"]["launches"]["fedagg"]
+    for k in by_path:
+        by_path[k]["fleet"] = fleet_launches[k]
+        by_path[k]["paper"] = paper_launches[k]
     emit({"kernels": [
         {"name": "fedagg", "route": "cuda",
          "source": "src/repro_torch/kernels/fedagg/csrc/fedagg.cu",

@@ -10,7 +10,10 @@ The file is the JAX package's (``repro.ckpt.checkpoint``), written by a
 small encoder of the msgpack subset it uses: maps, UTF-8 strings, bin
 payloads, arrays and non-negative ints, each in msgpack's shortest form.
 For the same arrays the two packages write the same bytes, and each
-restores the other's file.
+restores the other's file.  bf16 leaves, which numpy cannot hold without
+``ml_dtypes``, travel as their raw 2-byte words under the dtype string
+``"bfloat16"``, as JAX writes a ``jnp.bfloat16`` leaf; they restore as
+CPU ``torch.bfloat16`` tensors.
 
 Failure handling is strict: every malformed input — truncated file,
 undecodable bytes, a type outside the subset, a byte count that does not
@@ -166,18 +169,30 @@ def _flatten(tree, prefix: str = "") -> list:
             for kv in _flatten(v, f"{prefix}/{k}" if prefix else k)]
 
 
-def _host(leaf) -> np.ndarray:
+BF16 = "bfloat16"
+
+
+def _host(leaf) -> tuple[str, np.ndarray]:
+    """(dtype string, numpy array of the leaf's bytes).  A bf16 leaf, a
+    torch tensor or a numpy array of ``ml_dtypes``' type, goes through a
+    2-byte integer view of itself."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return BF16, t.view(torch.int16).numpy()
+        return str(t.numpy().dtype), t.numpy()
+    arr = np.asarray(leaf)
+    if str(arr.dtype) == BF16:
+        return BF16, arr.view(np.uint16)
+    return str(arr.dtype), arr
 
 
 def save(path: str, tree) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {}
     for key, leaf in _flatten(tree):
-        arr = _host(leaf)
-        payload[key] = {"dtype": str(arr.dtype), "shape": list(arr.shape),
+        dtype, arr = _host(leaf)
+        payload[key] = {"dtype": dtype, "shape": list(arr.shape),
                         "data": arr.tobytes()}
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -187,16 +202,20 @@ def save(path: str, tree) -> None:
     os.replace(tmp, path)
 
 
-def _decode_leaf(key: str, rec) -> np.ndarray:
+def _decode_leaf(key: str, rec):
     """One {dtype, shape, data} record -> a WRITABLE numpy array, with the
     byte count checked against the declared dtype and shape (a short read,
-    the classic SIGKILL-mid-write artifact, must fail loudly)."""
+    the classic SIGKILL-mid-write artifact, must fail loudly).  A
+    ``"bfloat16"`` record comes back as a CPU ``torch.bfloat16`` tensor,
+    its 2-byte words read as ``uint16``: numpy has no bf16 type of its
+    own."""
     if (not isinstance(rec, dict)
             or not {"dtype", "shape", "data"} <= set(rec)):
         raise CheckpointError(f"leaf {key!r} is not a {{dtype,shape,data}} "
                               "record")
+    bf16 = rec["dtype"] == BF16
     try:
-        dtype = np.dtype(rec["dtype"])
+        dtype = np.dtype(np.uint16 if bf16 else rec["dtype"])
     except TypeError as e:
         raise CheckpointError(f"leaf {key!r} has bad dtype "
                               f"{rec['dtype']!r}") from e
@@ -209,13 +228,17 @@ def _decode_leaf(key: str, rec) -> np.ndarray:
     if not isinstance(data, bytes) or len(data) != want:
         got = len(data) if isinstance(data, bytes) else 0
         raise CheckpointError(
-            f"leaf {key!r} truncated/corrupt: {got} bytes for dtype={dtype} "
-            f"shape={shape} (want {want})")
-    return np.frombuffer(data, dtype=dtype).reshape(shape).copy()
+            f"leaf {key!r} truncated/corrupt: {got} bytes for "
+            f"dtype={rec['dtype']} shape={shape} (want {want})")
+    arr = np.frombuffer(data, dtype=dtype).reshape(shape).copy()
+    if bf16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return arr
 
 
 def restore(path: str) -> dict:
-    """The checkpoint's {path: ndarray} map: each leaf a writable copy."""
+    """The checkpoint's {path: ndarray} map: each leaf a writable copy (a
+    bf16 leaf a ``torch.bfloat16`` tensor)."""
     try:
         with open(path, "rb") as f:
             buf = f.read()

@@ -13,6 +13,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core import cost_model, rounds
+from repro_torch.core.clustering import nearest_centroid
 from repro_torch.core.resources import Participant
 
 
@@ -136,6 +137,23 @@ def reassign(p: Participant, current: Assignment,
     current.tau[p.pid] = _tau(c.E, current.n_eff[p.pid], c.batch_size)
     current.diagnostics.append((p.pid, c.level, "forced-dynamic"))
     return old_level, c.level
+
+
+def reassign_by_centroids(V: np.ndarray, clustering,
+                          level_of_cluster: np.ndarray | None = None
+                          ) -> np.ndarray:
+    """Procedure 2 at fleet scale: re-place participants by ONE argmin over
+    the setup-time centroids of ``clustering`` (a
+    ``FleetClusteringResult``), whose frozen (lo, span, λ) map raw resource
+    rows into the centroids' coordinates.  ``level_of_cluster`` maps a
+    centroid index to a cluster level (identity when omitted).  Returns
+    one level per row of ``V``."""
+    V = np.atleast_2d(np.asarray(V, np.float64))
+    Xw = ((V - clustering.lo) / clustering.span) * np.sqrt(clustering.lam)
+    lab = nearest_centroid(Xw, clustering.centroids)
+    if level_of_cluster is not None:
+        lab = np.asarray(level_of_cluster)[lab]
+    return lab
 
 
 def build_cluster_specs(model_family_sizes: list[tuple[float, float]],

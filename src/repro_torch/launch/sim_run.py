@@ -20,6 +20,14 @@ dispatch, streaming staleness-discounted merges, with ``--max-staleness``
 bounding how far any cluster may lead the slowest (0 = synchronized
 arrivals ≡ the sync buffered path, bit-for-bit).
 
+``--fleet-size N`` switches to the vectorized orchestration simulator
+(``repro_torch.sim.FleetSim``): N Table-III-resampled participants as a
+struct-of-arrays ``Fleet``, columnar traces, sampled-Dunn Procedure 1, FedCS
+selection — no model training, fleet-scale scheduling/accounting only.
+
+  PYTHONPATH=src python -m repro_torch.launch.sim_run --fleet-size 100000 \
+      --rounds 3 --trace mixed --select fedcs --select-budget 64
+
 The crash-safety surface lives here too: ``--ckpt-dir`` arms round-boundary
 run-state checkpoints (cadence ``--ckpt-every``, retention ``--ckpt-keep``),
 ``--resume`` continues from the newest *valid* one bit-identically, SIGTERM/
@@ -28,9 +36,9 @@ SIGINT flush telemetry and write a final checkpoint before exiting
 ``--kill-mid-block``, ``--corrupt-ckpt``) drive the kill-and-resume tests.
 
 The flags are the JAX launcher's, plus ``--device`` (``cuda`` by default;
-without a card it raises).  What is not ported yet exits nonzero naming its
-ROADMAP item: ``--fleet-size`` (item 7b), ``--mesh-shape`` and
-``--tp-forward`` (item 11).
+without a card it raises; on the fleet path it is where the setup's Lloyd
+loop runs).  What is not ported yet exits nonzero naming its ROADMAP item:
+``--mesh-shape`` and ``--tp-forward`` (item 11).
 """
 from __future__ import annotations
 
@@ -45,14 +53,15 @@ import numpy as np
 from repro_torch.ckpt.run_state import make_checkpointer
 from repro_torch.core import server as srv
 from repro_torch.core.families import cnn_family
-from repro_torch.core.resources import (LAMBDA_EQUAL, LAMBDA_PAPER,
+from repro_torch.core.resources import (LAMBDA_EQUAL, LAMBDA_PAPER, Fleet,
                                         participants_from_matrix)
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import (SPECS, make_classification,
                                         train_test_split)
 from repro_torch.obs import make_observability
-from repro_torch.sim import (SCENARIOS, HeterogeneitySim, SimConfig,
+from repro_torch.sim import (SCENARIOS, FleetSim, FleetSimConfig,
+                             HeterogeneitySim, SimConfig, make_fleet_trace,
                              make_trace, sample_profiles, scenario_knobs)
 from repro_torch.sim.faults import (CORRUPTION_MODES, FaultInjector,
                                     FaultPlan, GracefulShutdown,
@@ -60,7 +69,6 @@ from repro_torch.sim.faults import (CORRUPTION_MODES, FaultInjector,
 
 # flag -> (the value it has when not given, what it waits for)
 _NOT_PORTED = {
-    "fleet_size": (0, "the vectorized fleet simulator, ROADMAP item 7b"),
     "mesh_shape": (None, "meshes and tensor parallelism, ROADMAP item 11"),
     "tp_forward": (None, "meshes and tensor parallelism, ROADMAP item 11"),
 }
@@ -97,9 +105,14 @@ def _crash_harness(args):
         raise SystemExit("--resume requires --ckpt-dir")
     if args.corrupt_ckpt and not args.ckpt_dir:
         raise SystemExit("--corrupt-ckpt requires --ckpt-dir")
-    if args.kill_mid_block is not None and args.rounds_per_dispatch <= 1:
-        raise SystemExit("--kill-mid-block needs --rounds-per-dispatch >1 "
-                         "(mid-block faults live inside dispatch blocks)")
+    if args.kill_mid_block is not None:
+        if args.fleet_size:
+            raise SystemExit("--kill-mid-block does not apply to the fleet "
+                             "simulator (no dispatch blocks)")
+        if args.rounds_per_dispatch <= 1:
+            raise SystemExit("--kill-mid-block needs --rounds-per-dispatch "
+                             ">1 (mid-block faults live inside dispatch "
+                             "blocks)")
     if args.corrupt_ckpt:
         path = corrupt_checkpoint(args.ckpt_dir, args.corrupt_ckpt)
         print(f"# corrupted newest checkpoint ({args.corrupt_ckpt}): {path}")
@@ -165,7 +178,8 @@ def _graceful_exit(args, sim, obs, signum) -> None:
              else "no checkpoint written (none armed or no round done)"))
     _flush_obs(args, obs)
     if args.report_out and sim.report is not None:
-        doc = sim.report.to_dict()
+        rep = sim.report
+        doc = rep.to_dict() if hasattr(rep, "to_dict") else rep.summary()
         doc["interrupted"] = signum
         with open(args.report_out, "w") as f:
             json.dump(doc, f, default=float)
@@ -199,8 +213,46 @@ def build(args):
     return eng, {"x": test.x, "y": test.y}
 
 
+def run_fleet(args):
+    """Vectorized fleet path: Fleet + FleetTrace + FleetSim, no training."""
+    n = args.fleet_size
+    ckpt, faults = _crash_harness(args)
+    fleet = Fleet.from_matrix(sample_profiles(n, seed=args.seed))
+    trace = make_fleet_trace(args.trace, n, args.rounds, seed=args.seed,
+                             **_trace_knobs(args))
+    lam = LAMBDA_PAPER if args.lam == "paper" else LAMBDA_EQUAL
+    sim = FleetSim(fleet, trace, FleetSimConfig(
+        rounds=args.rounds, mar_policy=args.mar_policy, select=args.select,
+        select_budget=args.select_budget, schedule=args.schedule,
+        mar=args.mar or 0.0, kappa=args.kappa, lam=lam, seed=args.seed,
+        mode=args.mode), checkpoint=ckpt, faults=faults, device=args.device)
+    with _graceful_signals():
+        try:
+            report = sim.run()
+        except GracefulShutdown as e:
+            _graceful_exit(args, sim, None, e.signum)
+    s = report.summary()
+    print(f"fleet={n} k={report.k} MAR={report.mar} "
+          f"cluster_sizes={s['cluster_sizes']}")
+    for r in report.rows:
+        print(f"r{r.round:03d}  Δ={r.duration:8.3f}s  events={r.events}  "
+              f"active={int(r.active.sum())} masked={int(r.masked.sum())} "
+              f"dropped={int(r.dropped.sum())} off={int(r.offline.sum())} "
+              f"unsel={int(r.unselected.sum())} "
+              f"banked={int(r.banked.sum())} flushed={int(r.flushed.sum())}")
+    if args.json:
+        print(json.dumps(s, default=float))
+    if args.report_out:
+        with open(args.report_out, "w") as f:
+            json.dump(s, f, default=float)
+        print(f"# report -> {args.report_out}")
+    return report
+
+
 def run(args):
     _refuse_not_ported(args)
+    if args.fleet_size:
+        return run_fleet(args)
     ckpt, faults = _crash_harness(args)
     eng, testb = build(args)
     members = {l: len(v) for l, v in eng.assignment.members.items()}
@@ -341,8 +393,11 @@ def main(argv=None):
     ap.add_argument("--corrupt-ckpt", default=None, choices=CORRUPTION_MODES,
                     help="damage the newest checkpoint under --ckpt-dir "
                          "before anything else runs (degradation testing)")
+    ap.add_argument("--fleet-size", type=int, default=0, metavar="N",
+                    help="run the vectorized fleet simulator on N "
+                         "participants (no training; scheduling and "
+                         "accounting only)")
     # not ported yet: each exits nonzero naming its ROADMAP item
-    ap.add_argument("--fleet-size", type=int, default=0, metavar="N")
     ap.add_argument("--mesh-shape", default=None, metavar="DATA[xMODEL]")
     ap.add_argument("--tp-forward", default=None,
                     action=argparse.BooleanOptionalAction)

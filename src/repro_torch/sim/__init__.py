@@ -10,11 +10,13 @@ bytes and MAR violations.  Straggler and dropout decisions become step-mask
 rows and weights of the engine's batched cluster update, so the simulator
 and the training path share one program.
 
-Ported: the synchronous engine on both paths, the continuous-time async
-server (``AsyncPlaneServer``, ``MasterBlock``, ``mode="async"``), run-state
-checkpoints and fault injection (``sim.faults``), traces (scenarios and the
-columnar ``FleetTrace``), the event queue and clocks, and the report.  Not
-yet: the vectorized fleet simulator (``FleetSim``; ROADMAP item 7b).
+Besides the synchronous engine on both paths, the package holds the
+continuous-time async server (``AsyncPlaneServer``, ``MasterBlock``,
+``mode="async"``), run-state checkpoints and fault injection
+(``sim.faults``), traces (scenarios and the columnar ``FleetTrace``), the
+event queue and clocks, the report, and the vectorized fleet simulator
+(``FleetSim``: scheduling and accounting at 10⁴–10⁶ participants, no
+training).
 """
 from repro_torch.sim.async_server import AsyncPlaneServer, MasterBlock
 from repro_torch.sim.clock import ClusterClock, EventQueue, SimClock
@@ -22,6 +24,8 @@ from repro_torch.sim.engine import HeterogeneitySim, SimConfig
 from repro_torch.sim.events import (Arrival, ClusterDone, Departure, Event,
                                     ResourceDrift, SpikeEnd, StragglerSpike,
                                     event_priority)
+from repro_torch.sim.fleet import (FleetReport, FleetRoundRecord, FleetSim,
+                                   FleetSimConfig)
 from repro_torch.sim.report import ClusterRoundStats, RoundRecord, SimReport
 from repro_torch.sim.traces import (SCENARIOS, FleetTrace, Trace,
                                     make_fleet_trace, make_trace,
@@ -29,7 +33,8 @@ from repro_torch.sim.traces import (SCENARIOS, FleetTrace, Trace,
 
 __all__ = [
     "Arrival", "AsyncPlaneServer", "ClusterClock", "ClusterDone",
-    "ClusterRoundStats", "Departure", "Event", "EventQueue", "FleetTrace",
+    "ClusterRoundStats", "Departure", "Event", "EventQueue", "FleetReport",
+    "FleetRoundRecord", "FleetSim", "FleetSimConfig", "FleetTrace",
     "HeterogeneitySim", "MasterBlock", "ResourceDrift", "RoundRecord",
     "SCENARIOS", "SimClock", "SimConfig", "SimReport", "SpikeEnd",
     "StragglerSpike", "Trace", "event_priority", "make_fleet_trace",

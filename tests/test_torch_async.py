@@ -10,10 +10,10 @@ with the JAX package is ``tests/test_torch_async_jax.py``.
 """
 import numpy as np
 import pytest
-import torch
 
 from _torch_sim_common import (CFG, FUSED_SEED, N_PART, POLICY_SEED, WIDTH,
                                federation, host_rows, run_port)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro_torch.core import server as t_srv
 from repro_torch.core.families import cnn_family
@@ -23,18 +23,6 @@ from repro_torch.obs import make_observability
 from repro_torch.sim import (AsyncPlaneServer, ClusterClock, HeterogeneitySim,
                              SimConfig, make_trace)
 from repro_torch.sim.report import ClusterRoundStats
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this file runs.  The test workers share
-    the machine's cores, and torch's default of one thread per core then
-    oversubscribes them: beside busy workers a small run here slows by
-    twentyfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ server object

@@ -8,25 +8,13 @@ teachers, version-lag merges).  Host fields exactly equal, losses and
 planes at rtol 2e-4 / atol 1e-5, accuracies within one test sample.
 """
 import pytest
-import torch
 
 from _torch_sim_common import (FUSED_SEED, POLICY_SEED, assert_runs_match,
                                engines, mixed_traces, planes, run_jax,
                                run_port)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro_torch.obs import make_observability
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this file runs.  The test workers share
-    the machine's cores, and torch's default of one thread per core then
-    oversubscribes them: beside busy workers a small run here slows by
-    twentyfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("R,max_staleness", [

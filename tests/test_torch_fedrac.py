@@ -18,6 +18,7 @@ import torch
 
 from _torch_fedrac_common import (SEED, _close, _curves_close, _engines,
                                   _teacher)
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import interop
 from repro_torch.core import server as t_srv
 from repro_torch.kernels.distill import ops as distill_ops

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.core import server as j_srv
 from repro.core.families import lm_family as j_lm_family

@@ -1,7 +1,9 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX, the JAX package or ``msgpack`` (which the
-card's machine lacks: the port writes the checkpoint format itself), and the
-engine never falls back to the CPU when no card is there."""
+"""The port stands alone: no module of ``src/repro_torch``, no port example
+(``examples/torch_*.py``) and not ``chip_smoke.py`` imports JAX, the JAX
+package, ``msgpack`` (which the card's machine lacks: the port writes the
+checkpoint format itself) or ``ml_dtypes`` (the port reads and writes bf16
+checkpoint leaves without it), and the engine never falls back to the CPU
+when no card is there."""
 import ast
 import pathlib
 
@@ -13,12 +15,13 @@ from repro_torch.core.families import mlp_family
 from repro_torch.launch import fl_train
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "ml_dtypes")
 
 
 def _port_files():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    return files + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples").glob("torch_*.py"))
+    return files + examples + [REPO / "chip_smoke.py"]
 
 
 def _imported_roots(path):

@@ -19,7 +19,8 @@ import time
 
 import numpy as np
 import pytest
-import torch
+
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro_torch.ckpt.checkpoint import CheckpointError
 from repro_torch.ckpt.manifest import CheckpointManager
@@ -40,18 +41,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAM = cnn_family(classes=10, in_channels=1, base_width=0.125)
 # the JAX resume tests' federation and trace (tests/test_ckpt_resume.py)
 TRACE_SEED = 5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread while this file runs.  The test workers share
-    the machine's cores, and torch's default of one thread per core then
-    oversubscribes them: beside busy workers a small run here slows by
-    twentyfold."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(seed=0, **cfg_kw):
@@ -245,7 +234,7 @@ def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(REPO, "src")
     env["PYTHONUNBUFFERED"] = "1"
-    env["OMP_NUM_THREADS"] = "1"       # as _one_torch_thread, per process
+    env["OMP_NUM_THREADS"] = "1"       # as one_torch_thread, per process
     return env
 
 

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _torch_sim_common import ATOL, RTOL, SEED, engines
+from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch import interop
 from repro_torch.core import server as t_srv
 from repro_torch.core.families import mlp_family

@@ -17,6 +17,7 @@ from _torch_sim_common import (N_PART, POLICY_SEED, assert_runs_match,
                                blip_run,
                                engines, host_rows, mixed_traces, planes,
                                run_jax, run_port)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro_torch.core import server as t_srv
 from repro_torch.launch import sim_run
@@ -98,7 +99,6 @@ def test_sim_run_cpu_json_and_observability(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--fleet-size", "100"], "item 7b"),
     (["--mesh-shape", "4x2"], "item 11"), (["--no-tp-forward"], "item 11")])
 def test_sim_run_refused_flags_name_their_item(flags, item):
     with pytest.raises(SystemExit) as e:

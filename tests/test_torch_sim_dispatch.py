@@ -18,6 +18,7 @@ from _torch_sim_common import (ATOL, CHURN_SEED, FUSED_SEED, RTOL,
                                assert_runs_match, blip_run, engines,
                                host_rows, mixed_traces, planes, run_jax,
                                run_port, sim_cfg)
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro_torch.core import server as t_srv
 from repro_torch.kernels.fedagg import ref as fedagg_ref
