@@ -8,7 +8,7 @@ Phases, each printing one JSON line:
   2. build    the three CUDA kernels (fedagg, distill, flash) compiled from
               ``src/repro_torch/kernels``, one nvcc each, all at once;
   3. kernels  each kernel against its plain PyTorch version on the card at
-              the shapes the two main paths give it (and a few more), then
+              the shapes the three main paths give it (and a few more), then
               timed with CUDA events: kernel, plain version, the bound from
               bytes and operations, and a library call where one computes
               the same function.  Flash cases name the kernel they took
@@ -96,7 +96,35 @@ Phases, each printing one JSON line:
               on the CPU from the same weights: final parameters within
               the parity tolerance, Oort's choices equal;
   13. examples ``examples/torch_quickstart.py`` and
-              ``examples/torch_fedrac_sim.py`` as processes on the card.
+              ``examples/torch_fedrac_sim.py`` as processes on the card;
+  14. moe_main Algorithm 1 on the MoE family at full granite-moe-1b-a400m
+              width (two of its 24 layers; 32 experts top-8, GShard capacity
+              dispatch; GQA attention on the flash kernel) with lm_main's
+              federation and schedule, cold and warm: launch counts as
+              lm_main's formula implies, the KD report through the distill
+              kernel, the router's aux loss, the share of routing choices
+              the capacity keeps; the kernels were checked at this path's
+              shapes in phase 3;
+  15. moe_parity a small MoE federation whose capacity dispatch drops
+              tokens, on the card and on the CPU from the same weights: the
+              final planes must agree;
+  16. families every new mixer at full width in bf16, weights drawn on the
+              card: granite-moe (24 layers), jamba's first superblock (8 of
+              32 layers: Mamba, attention, MoE), xlstm-350m (24) and
+              seamless-m4t-medium (12 + 12): the prefill forward of 2 x 128
+              tokens against the same tokens decoded one step at a time,
+              per position, within 2**16 times the fp32 CPU gap at smoke
+              size, except positions at or after a flip of an MoE router's
+              top-k between the two paths; the xLSTM, whose own prefill
+              moves by ~1e-3 under a one-ulp nudge, is held in fp32 against
+              16 times that response; no kernel launch;
+  17. serve   ``repro_torch.launch.serve`` on granite at full width and
+              depth in bf16 (batch 4, 32 + 32 tokens), then ``--watch-ckpt``
+              on a directory of one valid level-1 plane, a newer corrupt
+              step and a newest of another shape: one reload, two steps
+              skipped, the reloaded leaves bf16 and equal to the plane's
+              model; no kernel launch; then ``examples/torch_serve_demo.py``
+              as a process.
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no last line.  It exits nonzero at once
@@ -107,6 +135,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import math
 import os
 import shutil
@@ -139,6 +168,39 @@ PARITY_RTOL, PARITY_ATOL = 2e-4, 1e-5
 # the LM card-vs-CPU check: the same fp32 tolerance as the CNN's
 LM_PARITY_RTOL, LM_PARITY_ATOL = 2e-4, 1e-5
 LM_PARTICIPANTS, LM_CORPUS_TOKENS, LM_SEQ = 14, 12_000, 256
+# the MoE main path (lm_main's federation and schedule)
+MOE_ARCH = "granite-moe-1b-a400m"
+# the MoE card-vs-CPU check: lm_parity's federation on a small GQA MoE LM
+# whose capacity dispatch drops tokens (groups of one 17-token window at
+# capacity factor 0.5: 34 routing choices for 8 experts of 4 slots)
+MOE_SMALL = dict(name="matrix-moe", family="moe", n_layers=2, d_model=32,
+                 n_heads=4, n_kv_heads=2, head_dim=8, d_ff=16, vocab_size=64,
+                 ffn_pattern=("moe",), n_experts=8, experts_per_tok=2,
+                 moe_impl="capacity", moe_group=17, moe_capacity=0.5,
+                 rope_theta=1e4, attn_impl="pallas")
+# every new mixer at full width in bf16: the configuration's depth cut, and
+# the precision at which prefill == decode is held.  At full width the
+# xLSTM's own prefill moves by about 1e-3 of its largest logit under a
+# one-ulp fp32 nudge of its embeddings (this phase's fp32 record), so bf16
+# rounding alone parts its decode from its prefill by tens of per cent: it
+# is held in fp32, against that response
+FAMILIES = (("granite-moe-1b-a400m", {}, "bf16"),
+            ("jamba-v0.1-52b", {"n_layers": 8}, "bf16"),
+            ("xlstm-350m", {}, "fp32"),
+            ("seamless-m4t-medium", {}, "bf16"))
+FAMILY_B, FAMILY_S, SMOKE_S = 2, 128, 32
+# bf16 keeps 8 significant bits to fp32's 24: the bf16 tolerance of the
+# prefill-vs-decode gap is the fp32 gap at smoke size times 2**16, and at
+# least one bf16 rounding (2**-8) of the largest logit
+BF16_OVER_FP32_EPS = 2.0 ** 16
+# the serve phase: JAX's default request shape on granite at full width;
+# the watched run serves level 1 (16 experts), whose plane (about 0.43 G
+# floats) fits the checkpoint format, whose leaves hold at most 2**32 bytes
+# (msgpack's 32-bit lengths, in both packages): level 0's 1.33 G floats do
+# not
+SERVE_ARGS = ["--arch", MOE_ARCH, "--batch", "4", "--prompt-len", "32",
+              "--gen", "32"]
+WATCH_LEVEL = 1
 # the simulator's main path: the CNN federation of phase 4 under a trace
 SIM_ROUNDS, SIM_TRACE_SEED = 8, 3
 SIM_HOST_FIELDS = ("level", "time", "active", "dropped", "offline", "masked",
@@ -808,6 +870,126 @@ def load_example(name):
     return mod
 
 
+# ----------------------------------------------------------------- LM families
+def prefill_vs_decode(torch, registry, encdec, moe, cfg, device, B, S, seed,
+                      nudge=False):
+    """Weights drawn on ``device`` from a seeded generator; the prefill
+    forward of B x S random tokens (enc-dec: with S random frame
+    embeddings, the cross cache built from them), then the same tokens one
+    ``decode_step`` at a time.  Returns (summary, per-position gaps
+    (B, S) relative to the largest |logit|, (B, S) mask of the positions
+    at or after the first position whose MoE top-k choices differ between
+    the two paths in any layer, and with ``nudge`` the prefill's own
+    per-position response to a one-ulp fp32 nudge of the embedding table
+    (relative 2**-24 times a normal draw), else None).
+
+    A router's top-k is discrete: in bf16 a rounding difference between
+    the prefill's scan and the decode's recurrence can move a token to
+    another expert, and that token's logits (and, through the mixers'
+    state, those after it) then differ by far more than rounding."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: 0)
+    g = torch.Generator(device=device).manual_seed(seed)
+    sync()
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, g)
+    sync()
+    out = {"init_seconds": time.perf_counter() - t0,
+           "params": registry.param_count(params)}
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device=device)
+    emb = (torch.randn(B, S, cfg.d_model, generator=g, device=device)
+           if registry.is_encdec(cfg) else None)
+    routes, route = [], moe._route
+
+    def recording(p, c, x):
+        probs, top_w, top_i = route(p, c, x)
+        routes.append(top_i.reshape(B, -1, c.experts_per_tok).sort(-1)[0])
+        return probs, top_w, top_i
+
+    moe._route = recording
+    try:
+        with torch.no_grad():
+            sync()
+            t0 = time.perf_counter()
+            if emb is None:
+                full, _ = registry.forward(cfg, params, {"tokens": toks})
+            else:
+                full, _ = encdec.forward(cfg, params, toks, embeds=emb)
+            sync()
+            out["prefill_seconds"] = time.perf_counter() - t0
+            pre = list(routes)
+            routes.clear()
+            response = None
+            if nudge:
+                e = params["embed"]
+                params["embed"] = e * (1 + 2.0 ** -24 * torch.randn(
+                    e.shape, generator=g, device=device, dtype=e.dtype))
+                again, _ = registry.forward(cfg, params, {"tokens": toks})
+                params["embed"] = e
+                response = ((again.float() - full.float()).abs().amax(-1)
+                            / full.float().abs().max()).cpu()
+                del again
+                routes.clear()
+            t0 = time.perf_counter()
+            cache = registry.init_cache(cfg, B, S, src_len=S, device=device)
+            if emb is not None:
+                cache = encdec.build_cross_cache(cfg, params, cache, emb)
+            steps = []
+            for t in range(S):
+                lg, cache = registry.decode_step(cfg, params, cache,
+                                                 toks[:, t:t + 1], t)
+                steps.append(lg)
+            dec = torch.cat(steps, dim=1)
+            sync()
+            out["decode_seconds_per_step"] = (time.perf_counter() - t0) / S
+    finally:
+        moe._route = route
+    flipped = torch.zeros((B, S), dtype=torch.bool)
+    flips = []
+    for l, a in enumerate(pre):                      # MoE layers in order
+        b = torch.cat(routes[l::len(pre)], dim=1)    # (B, S, K) by step
+        f = (a != b).any(-1).cpu()
+        flips.append(int(f.sum()))
+        flipped |= f
+    full, dec = full.float(), dec.float()
+    scale = float(full.abs().max())
+    gaps = ((dec - full).abs().amax(-1) / max(scale, 1e-30)).cpu()
+    out.update(max_abs_gap=float((dec - full).abs().max()),
+               max_abs_logit=scale, relative_gap=float(gaps.max()),
+               finite=bool(torch.isfinite(full).all()
+                           and torch.isfinite(dec).all()),
+               router_flips_per_moe_layer=flips)
+    del params, cache, full, dec, steps
+    return out, gaps, flipped.cummax(dim=1)[0], response
+
+
+def first_moe_kept(torch, cfg, params, toks):
+    """(kept, made) routing choices of the first MoE block's capacity
+    dispatch on ``toks``: the block's input is recomputed as the model
+    computes it (norm, attention, residual, norm)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import attention, moe, transformer
+    from repro_torch.models.layers import apply_norm
+    p = tree_map(lambda x: x[0], params["blocks"]["p0"])
+    B, S = toks.shape
+    h = transformer.embed_tokens(cfg, params, toks)
+    pos = torch.arange(S, device=toks.device)[None].expand(B, S)
+    h = h + attention.attn_forward(p["mixer"], cfg,
+                                   apply_norm(cfg, p["norm1"], h), pos)
+    return moe.kept_choices(p["ffn"], cfg, apply_norm(cfg, p["norm2"], h))
+
+
+class LogLines(logging.Handler):
+    """A logging handler that keeps each record's message."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -911,6 +1093,24 @@ def main():
     H, hd = lm_base.n_heads, lm_base.head_dim
     B = lm_cfg.local_batch
 
+    # the MoE main path: granite-moe-1b-a400m at full width, two of its 24
+    # layers, on lm_main's federation, schedule and engine
+    moe_base = get_config(MOE_ARCH).replace(n_layers=2, attn_impl="pallas")
+    mparts, mcd, mtest = lm_federation(LM_PARTICIPANTS, moe_base.vocab_size,
+                                       LM_CORPUS_TOKENS, LM_SEQ, 3)
+    meng = TokenFedRAC(mparts, mcd, lm_family(moe_base, 0.5), lm_cfg,
+                       classes=moe_base.padded_vocab, device="cuda").setup()
+    moe_members = meng.assignment.members
+    moe_live = [l for l in range(meng.m) if moe_members.get(l)]
+    if not (0 in moe_live and any(l > 0 for l in moe_live)):
+        raise AssertionError(f"the MoE federation needs a master and a slave "
+                             f"cluster, got {moe_members}")
+    moe_shapes = {l: (meng._capacity(len(moe_members[l])),
+                      meng.plane_spec(l).d_pad) for l in moe_live}
+    if max(c for c, _ in moe_shapes.values()) > 8:
+        raise AssertionError(f"MoE capacities {moe_shapes} exceed 8, the "
+                             "memory reckoning's")
+
     # 3. kernels ----------------------------------------------------------
     fed_shapes = sorted(set(main_shapes.values()) | {(16, 1_629_440),
                                                      (16, 409_216)})
@@ -927,14 +1127,21 @@ def main():
                                  max_abs_err=err)
         del x, w
         torch.cuda.empty_cache()
+    for C, D in moe_shapes.values():          # checked, not timed
+        x, w, fed_checks[(C, D)] = check_fedagg(torch, f_ops, f_ref, dev, C,
+                                                D)
+        del x, w
+        torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "fedagg",
           "tolerance": {"rtol": FEDAGG_RTOL, "atol": FEDAGG_ATOL},
           "max_abs_err": {f"{C}x{D}": e for (C, D), e in fed_checks.items()},
           "timed": {f"{C}x{D}": v for (C, D), v in fed_timed.items()}})
     V_lm = lm_base.padded_vocab
     n_lm_test = len(ltest["tokens"])
+    V_moe, n_moe_test = moe_base.padded_vocab, len(mtest["tokens"])
     dist_cases = [(n_test, 10, torch.float32), (256, 10, torch.float32),
                   (8, 7000, torch.float32), (n_lm_test, V_lm, torch.float32),
+                  (n_moe_test, V_moe, torch.float32),
                   (512, 151_936, torch.float32), (7, 151_936, torch.float32),
                   (16, 512, torch.bfloat16)]
     dist_timed = {}
@@ -957,10 +1164,15 @@ def main():
                 "window": window, "softcap": softcap}
 
     C0 = lm_shapes[0][0]
+    Cm = moe_shapes[0][0]
+    mH, mKV, mhd = moe_base.n_heads, moe_base.n_kv_heads, moe_base.head_dim
     flash_cases = [
         flash_case("lm_main_member_step", C0 * B, H, H, LM_SEQ, hd),
         flash_case("lm_main_member_step_bf16", C0 * B, H, H, LM_SEQ, hd,
                    "bfloat16"),
+        flash_case("granite_moe_member_step", Cm * B, mH, mKV, LM_SEQ, mhd),
+        flash_case("granite_moe_member_step_bf16", Cm * B, mH, mKV, LM_SEQ,
+                   mhd, "bfloat16"),
         flash_case("qwen3-8b_gqa", 1, 32, 8, 2048, 128),
         flash_case("qwen3-8b_gqa_bf16", 1, 32, 8, 2048, 128, "bfloat16"),
         flash_case("minicpm-2b_hd64", 1, 36, 36, 2048, 64),
@@ -1807,6 +2019,323 @@ def main():
     emit({"phase": "examples", "device": "cuda (the examples' default)",
           "runs": ex_runs})
 
+    # 14. Fed-RAC on the MoE family, granite-moe-1b-a400m width ------------
+    import numpy as np
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import encdec as encdec_mod
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import registry as reg_mod
+    from repro_torch.models import transformer as tf_mod
+    from repro_torch.core.plane import make_plane_spec
+    from repro_torch.sim.faults import corrupt_checkpoint
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    mres = meng.train(mtest)
+    torch.cuda.synchronize()
+    moe_train_s = time.perf_counter() - t0
+    mt = torch.as_tensor(mtest["tokens"], device=dev)
+    moe_kd = {}
+    with torch.no_grad():
+        _, t_logits = meng.family.loss_and_logits(0, meng.master_params,
+                                                  {"tokens": mt})
+        for level, p in meng.cluster_params.items():
+            if level == 0:
+                continue
+            _, s_logits = meng.family.loss_and_logits(level, p,
+                                                      {"tokens": mt})
+            moe_kd[level] = float(distill.kd_loss(
+                s_logits, mt[:, -1], t_logits, T=lm_cfg.kd_T,
+                alpha=lm_cfg.kd_alpha, use_kernel=True))
+    torch.cuda.synchronize()
+    moe_main_s = time.perf_counter() - t0
+    moe_peak = torch.cuda.max_memory_allocated()
+    moe_launches = read_counts()
+    L = moe_base.n_layers
+    moe_slaves = [l for l in moe_live if l > 0]
+    # as lm_main: per dispatched round one flash launch per layer for each
+    # member step, the slave's teacher forward and the evaluation; then
+    # the KD report's forwards
+    want = {"fedagg": R * len(moe_live), "distill": len(moe_slaves),
+            "flash": sum(R * L * (steps + 1 + (1 if l > 0 else 0))
+                         for l in moe_live) + L * (1 + len(moe_slaves))}
+    if moe_launches != want:
+        raise AssertionError(f"MoE path launches {moe_launches}, expected "
+                             f"{want}")
+    check_finite(torch, meng, meng.block_losses, moe_kd)
+    with torch.no_grad():                 # after the counts are read
+        cfg0 = compress_config(moe_base, 0.5, 0)
+        _, moe_aux = tf_mod.forward(cfg0, meng.master_params, mt)
+        moe_kept = first_moe_kept(torch, cfg0, meng.master_params, mt)
+    t0 = time.perf_counter()
+    meng.train(mtest)
+    torch.cuda.synchronize()
+    moe_warm_s = time.perf_counter() - t0
+    emit({"phase": "moe_main", "config": MOE_ARCH,
+          "cut": dict(lm_cut, n_layers="2 of 24"),
+          "d_model": moe_base.d_model,
+          "heads": [moe_base.n_heads, moe_base.n_kv_heads],
+          "head_dim": moe_base.head_dim, "d_ff": moe_base.d_ff,
+          "experts": [moe_base.n_experts, moe_base.experts_per_tok],
+          "dispatch": {"impl": moe_base.moe_impl,
+                       "group": moe_base.moe_group,
+                       "capacity_factor": moe_base.moe_capacity},
+          "vocab": [moe_base.vocab_size, moe_base.padded_vocab],
+          "k_optimal": meng.k_optimal, "m": meng.m,
+          "params_per_level": {
+              str(l): param_count(compress_config(moe_base, 0.5, l))
+              for l in range(3)},
+          "experts_per_level": {
+              str(l): compress_config(moe_base, 0.5, l).n_experts
+              for l in range(3)},
+          "members": {str(l): len(v) for l, v in moe_members.items()},
+          "capacity_and_d_pad": {str(l): list(v)
+                                 for l, v in moe_shapes.items()},
+          "round_member_losses": meng.block_losses,
+          "neg_loss_curves": {str(l): h for l, h in mres.history.items()},
+          "slave_kd_loss_vs_master": {str(l): v for l, v in moe_kd.items()},
+          "master_router_aux": float(moe_aux),
+          "master_first_block_kept_of_made": list(moe_kept),
+          "train_seconds_cold": moe_train_s,
+          "train_seconds_warm": moe_warm_s, "main_seconds": moe_main_s,
+          "peak_mem_bytes": moe_peak, "launches": moe_launches,
+          "expected_launches": want})
+    del meng
+    torch.cuda.empty_cache()
+
+    # 15. the MoE federation, card == CPU ---------------------------------
+    mbase = ModelConfig(**MOE_SMALL)
+    finals, inits, runs = {}, {}, {}
+    for where in ("cpu", "cuda"):
+        sp, scd, stest = lm_federation(8, 64, 8_000, 17, 0)
+        e = TokenFedRAC(sp, scd, lm_family(mbase, 0.5),
+                        srv.FLConfig(rounds=2, rounds_per_dispatch=2,
+                                     steps_per_round=3, lr=0.05,
+                                     local_batch=4, compact_to=2,
+                                     class_balanced=False, seed=0),
+                        classes=64, device=where).setup()
+        inits[where] = {l: e.plane_of(l, e.init_params(l)).cpu()
+                        for l in range(e.m)}
+        zero_counts()
+        runs[where] = e.train(stest).history
+        runs[where + "_launches"] = read_counts()
+        finals[where] = {l: e.plane_of(l, p).cpu()
+                         for l, p in e.cluster_params.items()}
+        toks = torch.as_tensor(scd[0]["tokens"][:4], device=where)
+        runs[where + "_master_kept_of_made"] = list(first_moe_kept(
+            torch, mbase, e.params_of(0, e.plane_of(0, e.init_params(0))),
+            toks))
+    kept, made = runs["cpu_master_kept_of_made"]
+    if not kept < made:
+        raise AssertionError(f"moe_parity: no token dropped ({kept} of "
+                             f"{made} choices kept)")
+    if not (runs["cuda_launches"]["flash"] > 0
+            and runs["cpu_launches"]["flash"] == 0):
+        raise AssertionError(f"moe_parity: launches {runs}")
+    levels = {}
+    for l in finals["cpu"]:
+        diff = (finals["cuda"][l] - finals["cpu"][l]).abs()
+        allowed = LM_PARITY_ATOL + LM_PARITY_RTOL * finals["cpu"][l].abs()
+        levels[str(l)] = {"max_abs_diff": float(diff.max()),
+                          "worst_share_of_tolerance":
+                              float((diff / allowed).max())}
+    emit({"phase": "moe_parity",
+          "tolerance": {"rtol": LM_PARITY_RTOL, "atol": LM_PARITY_ATOL},
+          "config": MOE_SMALL, "levels": levels, "runs": runs})
+    for l in finals["cpu"]:
+        torch.testing.assert_close(inits["cuda"][l], inits["cpu"][l],
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(finals["cuda"][l], finals["cpu"][l],
+                                   rtol=LM_PARITY_RTOL, atol=LM_PARITY_ATOL)
+
+    # 16. every new mixer at full width, prefill == decode ----------------
+    zero_counts()
+    families = {}
+    for arch, cut, hold in FAMILIES:
+        full = get_config(arch).replace(**cut)
+        smoke = get_config(arch, smoke=True)
+        if full.n_experts:
+            # capacity E/K: a group's every token fits its expert, so no
+            # choice drops and the prefill and one-token decode steps
+            # compute the same function; the smoke runs the same dispatch
+            full = full.replace(moe_capacity=full.n_experts
+                                / full.experts_per_tok)
+            smoke = smoke.replace(moe_impl="capacity",
+                                  moe_capacity=smoke.n_experts
+                                  / smoke.experts_per_tok)
+        ref32 = prefill_vs_decode(torch, reg_mod, encdec_mod, moe_mod, smoke,
+                                  torch.device("cpu"), FAMILY_B, SMOKE_S,
+                                  0)[0]
+        tol = BF16_OVER_FP32_EPS * max(ref32["relative_gap"], 2.0 ** -24)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        r, gaps, after_flip, _ = prefill_vs_decode(
+            torch, reg_mod, encdec_mod, moe_mod, full, dev, FAMILY_B,
+            FAMILY_S, 0)
+        over = gaps > tol
+        r.update(peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                 held_before_bytes=held, dtype=full.dtype,
+                 layers=[full.n_layers, full.n_enc_layers]
+                 if reg_mod.is_encdec(full) else full.n_layers,
+                 mixers=list(full.block_pattern),
+                 ffn=list(full.ffn_pattern),
+                 smoke_fp32_cpu=ref32, tolerance_relative=tol,
+                 positions=gaps.numel(),
+                 positions_over_tolerance=int(over.sum()),
+                 positions_after_a_router_flip=int(after_flip.sum()),
+                 largest_gap_before_any_flip=float(
+                     gaps[~after_flip].max()) if (~after_flip).any()
+                 else None)
+        families[arch] = r
+        emit({"phase": "families", "arch": arch, "held_in": hold, **r})
+        if not r["finite"]:
+            raise AssertionError(f"{arch}: non-finite logits")
+        if hold == "bf16" and (over & ~after_flip).any():
+            # every position within the tolerance, except those at or
+            # after a top-k flip of the router in their sequence
+            raise AssertionError(f"{arch}: prefill vs decode beyond the "
+                                 f"tolerance {tol} before any router flip")
+        if hold == "fp32":
+            # the same model in fp32: the decode may differ from the
+            # prefill by what rounding moves the prefill itself, 16 times
+            # the response to a one-ulp nudge (its running maximum along
+            # the sequence), and at least by the smoke's fp32 gap
+            torch.cuda.empty_cache()
+            r32, gaps32, _, resp = prefill_vs_decode(
+                torch, reg_mod, encdec_mod, moe_mod,
+                full.replace(dtype="float32"), dev, FAMILY_B, FAMILY_S, 0,
+                nudge=True)
+            allowed = 16 * torch.clamp(resp.cummax(dim=1)[0],
+                                       min=ref32["relative_gap"])
+            r32.update(nudge_response_max=float(resp.max()),
+                       worst_share_of_allowed=float((gaps32 / allowed).max()))
+            emit({"phase": "families", "arch": arch, "dtype": "float32",
+                  **r32})
+            if not (r32["finite"] and (gaps32 <= allowed).all()):
+                raise AssertionError(f"{arch}: fp32 prefill vs decode beyond "
+                                     "16 times the nudge response")
+        torch.cuda.empty_cache()
+    fam_launches = read_counts()
+    if any(fam_launches.values()):
+        raise AssertionError(f"families launched {fam_launches}")
+
+    # 17. serving: repro_torch.launch.serve on granite, full width and depth
+    serve_dir = ROOT / "build" / "chip_smoke" / "serve"
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    serve_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        toks = serve_mod.main(SERVE_ARGS + [
+            "--metrics-json", str(serve_dir / "metrics.json")])
+    serve_s = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated()
+    metrics = json.loads((serve_dir / "metrics.json").read_text())
+    scfg = get_config(MOE_ARCH)
+    shape = tuple(int(SERVE_ARGS[SERVE_ARGS.index(f) + 1])
+                  for f in ("--batch", "--gen"))
+    if toks.shape != shape or not ((0 <= toks) & (toks < scfg.vocab_size)
+                                   ).all():
+        raise AssertionError(f"serve: tokens {toks.shape} outside the "
+                             "vocabulary")
+    # the watched directory: a valid plane of the served model (other
+    # weights: seed 1), a newer corrupt step, a newest of another shape
+    ck = serve_dir / "ckpt"
+    key = f"plane/{WATCH_LEVEL}"
+    hdr = {"run_state": {"version": 1, "kind": "hetero-sim"}}
+    mgr = CheckpointManager(str(ck), keep=10)
+    wcfg = compress_config(scfg, 0.5, WATCH_LEVEL)
+    t0 = time.perf_counter()
+    reloaded = reg_mod.init_params(
+        wcfg, torch.Generator(device=dev).manual_seed(1))
+    spec = make_plane_spec(reloaded)
+    watch_params = reg_mod.param_count(reloaded)
+    mgr.save(1, hdr, {key: spec.to_plane(reloaded).cpu().numpy()})
+    write_s = time.perf_counter() - t0
+    mgr.save(2, hdr, {key: np.zeros(4096, np.float32)})
+    corrupt_checkpoint(str(ck), "garbage")
+    mgr.save(3, hdr, {key: np.zeros(4096, np.float32)})
+    seen = []
+
+    class Watcher(serve_mod.PlaneWatcher):
+        def poll(self, params):
+            out, fresh = super().poll(params)
+            if fresh:
+                seen.append((self.step, [x.dtype for x in
+                                         tree_leaves(out)],
+                             all(torch.equal(a, b) for a, b in zip(
+                                 tree_leaves(out), tree_leaves(reloaded)))))
+            return out, fresh
+
+    lines = LogLines()
+    logging.getLogger("repro_torch.serve").addHandler(lines)
+    serve_mod.PlaneWatcher = Watcher
+    stdout_w = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(stdout_w):
+            serve_mod.main(SERVE_ARGS + [
+                "--cluster-level", str(WATCH_LEVEL), "--watch-level",
+                str(WATCH_LEVEL), "--watch-ckpt", str(ck),
+                "--metrics-json", str(serve_dir / "watch_metrics.json")])
+    finally:
+        serve_mod.PlaneWatcher = Watcher.__mro__[1]
+        logging.getLogger("repro_torch.serve").removeHandler(lines)
+    watch_s = time.perf_counter() - t0
+    serve_launches = read_counts()
+    del reloaded
+    wm = json.loads((serve_dir / "watch_metrics.json").read_text())
+    skipped = sorted({int(l.split("step ")[1].split()[0].rstrip(":"))
+                      for l in lines.lines})
+    watch = {"reloads": wm["counters"].get("serve/plane_reloads"),
+             "plane_step": wm["gauges"].get("serve/plane_step"),
+             "skipped_steps": skipped, "warnings": lines.lines,
+             "reloaded": [{"step": st, "dtypes": sorted({str(d) for d in ds}),
+                           "equal_to_the_plane's_model": eq}
+                          for st, ds, eq in seen],
+             "level": WATCH_LEVEL, "plane_floats": spec.d_pad,
+             "params": watch_params,
+             "plane_write_seconds": write_s, "seconds": watch_s,
+             "stdout": stdout_w.getvalue().splitlines()[:3]}
+    if not (watch["reloads"] == 1 and watch["plane_step"] == 1
+            and skipped == [2, 3] and len(seen) == 1
+            and watch["reloaded"][0]["dtypes"] == [str(getattr(torch,
+                                                               scfg.dtype))]
+            and seen[0][2]
+            and "# serving plane from checkpoint step 1"
+            in stdout_w.getvalue()):
+        raise AssertionError(f"serve --watch-ckpt: {watch}")
+    if any(serve_launches.values()):
+        raise AssertionError(f"serve launched {serve_launches}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable,
+                           str(ROOT / "examples" / "torch_serve_demo.py")],
+                          capture_output=True, text=True, timeout=600,
+                          env=env, cwd=ROOT)
+    demo = {"seconds": time.perf_counter() - t0,
+            "exit_code": proc.returncode,
+            "last_lines": proc.stdout.strip().splitlines()[-3:]}
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_serve_demo exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    hist = metrics["histograms"]["serve/decode_step_s"]
+    emit({"phase": "serve", "argv": SERVE_ARGS, "dtype": scfg.dtype,
+          "layers": scfg.n_layers, "seconds": serve_s,
+          "tokens_per_second": metrics["gauges"]["serve/decode_tok_per_s"],
+          "seconds_per_decode_step": hist["sum"] / hist["count"],
+          "counters": metrics["counters"], "gauges": metrics["gauges"],
+          "stdout": stdout.getvalue().splitlines()[:2],
+          "peak_mem_bytes": serve_peak, "launches": serve_launches,
+          "watch": watch, "demo": demo})
+
     # kernels line, card line, last line -----------------------------------
     D0 = lm_shapes[0][1]
     fed = fed_timed[(C0, D0)]
@@ -1820,6 +2349,9 @@ def main():
     for k in by_path:
         by_path[k]["fleet"] = fleet_launches[k]
         by_path[k]["paper"] = paper_launches[k]
+        by_path[k]["moe_main"] = moe_launches[k]
+        by_path[k]["families"] = fam_launches[k]
+        by_path[k]["serve"] = serve_launches[k]
     emit({"kernels": [
         {"name": "fedagg", "route": "cuda",
          "source": "src/repro_torch/kernels/fedagg/csrc/fedagg.cu",

@@ -2,9 +2,7 @@
 numbers, source papers / model cards cited per entry) and their reduced
 smoke variants.
 
-The port runs the decoder-only dense family (attention mixers, dense FFN);
-the other families' configs are carried as data until their modules are
-ported (ROADMAP item 10).
+The port builds, runs and decodes every one of them (``models/registry``).
 """
 from __future__ import annotations
 

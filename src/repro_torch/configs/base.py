@@ -1,9 +1,9 @@
 """Model / run configuration dataclasses, a copy of ``repro.configs.base``.
 
 Every field is kept, so a configuration carries across the two packages
-unchanged.  Fields that select code the port has not ported yet (MoE,
-Mamba, xLSTM, enc-dec, sharding and cache layouts, ``remat``) are data
-here; the model code raises on them (``models/transformer.py``).
+unchanged.  Fields that select code the port has not ported yet
+(sharding and cache layouts, ``remat``) are data here; ``remat=True``
+raises in ``models/transformer.py``.
 ``attn_impl`` keeps the JAX values: ``"pallas"`` selects the port's CUDA
 flash kernel (``models/attention.py``).
 """

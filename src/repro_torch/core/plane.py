@@ -10,6 +10,13 @@ The element order is ``ravel_pytree``'s (``core.tree``): sorted dict keys,
 then list order, each leaf raveled C-order in its reference layout (HWIO
 conv weights, ``(in, out)`` dense weights).  A port plane therefore equals
 the JAX package's plane of the same parameters element by element.
+
+``to_params`` follows the dtype rule of JAX's ``ravel_pytree`` unravel:
+a template whose leaves share one dtype unravels to views in the plane's
+dtype (an fp32 plane of a bf16 model trains fp32 leaves, in both
+packages), and a template of mixed dtypes gives each leaf its own dtype
+back.  ``keep_dtypes=True`` gives every leaf its template dtype, which a
+server reloading an fp32 plane into bf16 serving parameters asks for.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ class PlaneSpec:
     d_pad: int                  # padded plane length (multiple of PLANE_ALIGN)
     template: object            # the params structure, leaves are None
     shapes: tuple               # leaf shapes in ravel order
+    dtypes: tuple               # leaf dtypes in ravel order
 
     def to_plane(self, params) -> torch.Tensor:
         """params pytree -> (..., d_pad) fp32 plane.  Leading axes beyond a
@@ -46,13 +54,17 @@ class PlaneSpec:
                                             dtype=torch.float32))
         return torch.cat(flat, dim=-1)
 
-    def to_params(self, plane: torch.Tensor):
-        """(..., d_pad) plane -> params pytree of views into the plane."""
+    def to_params(self, plane: torch.Tensor, *, keep_dtypes: bool = False):
+        """(..., d_pad) plane -> params pytree.  Leaves are views into the
+        plane unless cast: to their template dtypes when the template mixes
+        dtypes (JAX's unravel) or when ``keep_dtypes``."""
+        cast = keep_dtypes or len(set(self.dtypes)) > 1
         lead = plane.shape[:-1]
         leaves, off = [], 0
-        for shape in self.shapes:
+        for shape, dtype in zip(self.shapes, self.dtypes):
             n = math.prod(shape)
-            leaves.append(plane[..., off:off + n].reshape(*lead, *shape))
+            leaf = plane[..., off:off + n].reshape(*lead, *shape)
+            leaves.append(leaf.to(dtype) if cast else leaf)
             off += n
         return tree_unflatten(self.template, leaves)
 
@@ -65,7 +77,8 @@ def make_plane_spec(params_template) -> PlaneSpec:
     return PlaneSpec(d=d, d_pad=d_pad,
                      template=tree_unflatten(params_template,
                                              [None] * len(shapes)),
-                     shapes=shapes)
+                     shapes=shapes,
+                     dtypes=tuple(x.dtype for x in leaves))
 
 
 def pad_member_rows(plane: torch.Tensor, weights: torch.Tensor, rows: int):

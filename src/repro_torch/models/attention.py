@@ -1,9 +1,8 @@
 """Grouped-query attention with sliding window, softcap, qk-norm, (M-)RoPE.
 
-A torch copy of the full-sequence half of ``repro.models.attention``:
-``attn_forward`` (train / prefill), with three routes chosen by
-``cfg.attn_impl``, whose values are the JAX package's so configurations
-carry across:
+A torch copy of ``repro.models.attention``.  ``attn_forward`` (train /
+prefill) has three routes chosen by ``cfg.attn_impl``, whose values are
+the JAX package's so configurations carry across:
 
 * ``"jnp"``: ``_sdpa``, scores materialised (the plain einsum form);
 * ``"blocked"``: ``_sdpa_blocked``, online softmax over key blocks in plain
@@ -15,8 +14,13 @@ carry across:
   the kernel serves causal attention without M-RoPE; anything else takes
   the ``"jnp"`` route.
 
-Cross-attention, KV caches and ``attn_decode`` wait for the serving slice
-(ROADMAP item 10e).
+The serving half: ``cross_kv`` / ``cross_attn_forward`` (the enc-dec
+decoder's cross-attention, no positional encoding), ``init_attn_cache`` and
+``attn_decode`` (one new token against a KV cache, the sliding-window mask
+for ``local=True``).  Decode takes the plain ``_sdpa`` route whatever
+``attn_impl`` says, as JAX's does.  Where JAX writes the new key and value
+with ``dynamic_update_slice``, ``attn_decode`` returns a new cache tensor
+(``index_copy``), so a caller's old cache is never written.
 """
 from __future__ import annotations
 
@@ -31,15 +35,11 @@ NEG_INF = -2.0 ** 30  # large-but-finite: keeps fully-masked rows NaN-free
 
 
 def init_attn(generator, cfg: ModelConfig, dtype):
-    p = {
-        "wq": dense_init(generator, cfg.d_model, cfg.q_dim, dtype),
-        "wk": dense_init(generator, cfg.d_model, cfg.kv_dim, dtype),
-        "wv": dense_init(generator, cfg.d_model, cfg.kv_dim, dtype),
-        "wo": dense_init(generator, cfg.q_dim, cfg.d_model, dtype),
-    }
+    p = init_cross_attn(generator, cfg, dtype)
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((cfg.head_dim,), dtype=dtype)
-        p["k_norm"] = torch.ones((cfg.head_dim,), dtype=dtype)
+        dev = generator.device
+        p["q_norm"] = torch.ones((cfg.head_dim,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((cfg.head_dim,), dtype=dtype, device=dev)
     return p
 
 
@@ -147,3 +147,55 @@ def attn_forward(p, cfg: ModelConfig, x, positions, *, local: bool = False,
                               device=x.device)
         out = _sdpa(cfg, q, k, v, mask)
     return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def init_cross_attn(generator, cfg: ModelConfig, dtype):
+    return {
+        "wq": dense_init(generator, cfg.d_model, cfg.q_dim, dtype),
+        "wk": dense_init(generator, cfg.d_model, cfg.kv_dim, dtype),
+        "wv": dense_init(generator, cfg.d_model, cfg.kv_dim, dtype),
+        "wo": dense_init(generator, cfg.q_dim, cfg.d_model, dtype),
+    }
+
+
+def cross_kv(p, cfg: ModelConfig, enc_out):
+    B, T, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attn_forward(p, cfg: ModelConfig, x, k, v):
+    """x: (B,S,d); k, v: (B,T,KV,hd) from the encoder.  No positional
+    encoding."""
+    B, S, _ = x.shape
+    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = _sdpa(cfg, q, k, v, mask)
+    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                    device=None):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attn_decode(p, cfg: ModelConfig, cache, x, pos, *, local: bool = False):
+    """x: (B,1,d); pos: the current position (an int).  Returns
+    (out, cache), the cache a new dict of new tensors."""
+    B = x.shape[0]
+    pos = int(pos)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    at = torch.tensor([pos], device=x.device)
+    k = cache["k"].index_copy(1, at, k_new.to(cache["k"].dtype))
+    v = cache["v"].index_copy(1, at, v_new.to(cache["v"].dtype))
+    j = torch.arange(k.shape[1], device=x.device)
+    m = j <= pos
+    if local and cfg.sliding_window > 0:
+        m = m & ((pos - j) < cfg.sliding_window)
+    out = _sdpa(cfg, q, k, v, m[None, None, None])               # (1,1,1,T)
+    return out.reshape(B, 1, cfg.q_dim) @ p["wo"], {"k": k, "v": v}

@@ -4,8 +4,10 @@ A torch copy of ``repro.models.layers``.  Every layer is a pure function
 over an explicit parameter pytree (nested dicts of tensors), so it composes
 with the stacked superblock parameters of ``models/transformer.py`` and the
 member-axis ``torch.func.vmap`` of ``core/client.py``.  Init draws from a
-CPU ``torch.Generator``; the numbers differ from ``jax.random``'s, so the
-parity tests carry the JAX draws across (``interop``).
+``torch.Generator`` on the generator's own device (a CUDA generator draws
+on the card, so a full-width model never passes through host memory); the
+numbers differ from ``jax.random``'s, so the parity tests carry the JAX
+draws across (``interop``).
 """
 from __future__ import annotations
 
@@ -23,25 +25,31 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 # --------------------------------------------------------------------------- init
+def normal(generator, shape, scale: float, dtype):
+    """Standard normal draws times ``scale`` in ``dtype``, drawn in fp32 on
+    ``generator.device``."""
+    return (torch.randn(shape, generator=generator, device=generator.device)
+            * scale).to(dtype)
+
+
 def dense_init(generator, d_in: int, d_out: int, dtype,
                scale: float | None = None):
     scale = scale if scale is not None else d_in ** -0.5
-    return (torch.randn((d_in, d_out), generator=generator) * scale).to(dtype)
+    return normal(generator, (d_in, d_out), scale, dtype)
 
 
 def embed_init(generator, vocab: int, d_model: int, dtype):
-    return (torch.randn((vocab, d_model), generator=generator) * 0.02
-            ).to(dtype)
+    return normal(generator, (vocab, d_model), 0.02, dtype)
 
 
 # --------------------------------------------------------------------------- norms
-def init_norm(cfg: ModelConfig, d: int, dtype):
+def init_norm(cfg: ModelConfig, d: int, dtype, device=None):
     if cfg.norm_type == "nonparam_ln":            # olmo: no learnable affine
         return {}
     if cfg.norm_type == "layernorm":
-        return {"scale": torch.ones((d,), dtype=dtype),
-                "bias": torch.zeros((d,), dtype=dtype)}
-    return {"scale": torch.ones((d,), dtype=dtype)}        # rmsnorm
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}  # rmsnorm
 
 
 def apply_norm(cfg: ModelConfig, p, x, eps: float = 1e-6):

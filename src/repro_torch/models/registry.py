@@ -1,44 +1,72 @@
-"""Uniform model API over the families: init / forward / loss, a torch copy
-of the decoder-only half of ``repro.models.registry``.
+"""Uniform model API over the families: init / forward / loss / cache /
+decode, a torch copy of ``repro.models.registry``.
 
-``batch`` layout (decoder-only: dense, and later moe / hybrid / ssm / vlm):
-``{"tokens": (B, S) int}``, plus ``{"embeds": (B, S_front, d)}`` for a
-modality frontend stub.  The enc-dec family raises until ROADMAP item 10d;
-caches and decoding wait for item 10e.
+``batch`` layout by family:
+  * decoder-only (dense / moe / hybrid / ssm): ``{"tokens": (B, S) int}``
+  * vlm:    ``{"tokens": (B, S_txt)}``, ``{"embeds": (B, S_front, d)}``
+  * encdec: ``{"tokens": (B, S_tgt)}``, ``{"embeds": (B, S_src, d)}``
+(the ``embeds`` are a modality-frontend stub).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_leaves
-from repro_torch.models import transformer
+from repro_torch.models import attention, encdec, transformer
 
 
 def is_encdec(cfg: ModelConfig) -> bool:
     return cfg.family == "encdec"
 
 
-def _decoder_only(cfg: ModelConfig):
-    if is_encdec(cfg):
-        raise NotImplementedError("not ported yet: the enc-dec family "
-                                  "(models/encdec.py) is ROADMAP item 10d")
+def _module(cfg: ModelConfig):
+    return encdec if is_encdec(cfg) else transformer
 
 
 def init_params(cfg: ModelConfig, generator):
-    _decoder_only(cfg)
-    return transformer.init_params(cfg, generator)
+    """Draws from ``generator`` on its device."""
+    return _module(cfg).init_params(cfg, generator)
 
 
 def forward(cfg: ModelConfig, params, batch):
-    _decoder_only(cfg)
+    if is_encdec(cfg):
+        return encdec.forward(cfg, params, batch["tokens"],
+                              embeds=batch["embeds"])
     return transformer.forward(cfg, params, batch.get("tokens"),
                                embeds=batch.get("embeds"))
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """Returns (total_loss, ce): next-token CE (+ MoE aux)."""
-    _decoder_only(cfg)
+    if is_encdec(cfg):
+        logits, _ = encdec.forward(cfg, params, batch["tokens"],
+                                   embeds=batch["embeds"])
+        lg = logits[:, :-1].to(torch.float32)
+        lbl = batch["tokens"][:, 1:].long()
+        lg = torch.where(transformer.vocab_mask(cfg, lg.device)[None, None],
+                         lg, attention.NEG_INF)
+        lse = torch.logsumexp(lg, dim=-1)
+        picked = torch.gather(lg, -1, lbl[..., None])[..., 0]
+        ce = torch.mean(lse - picked)
+        return ce, ce
     return transformer.next_token_loss(cfg, params, batch["tokens"],
                                        embeds=batch.get("embeds"))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int = 0,
+               device=None):
+    """Zeroed decode cache.  For enc-dec the cross K/V are zeros of
+    ``src_len`` (default ``max_len // 8``) frames until
+    ``encdec.build_cross_cache`` fills them."""
+    if is_encdec(cfg):
+        return encdec.init_cache(cfg, batch, max_len,
+                                 src_len or max_len // 8, device)
+    return transformer.init_cache(cfg, batch, max_len, device)
+
+
+def decode_step(cfg: ModelConfig, params, cache, token, pos):
+    return _module(cfg).decode_step(cfg, params, cache, token, pos)
 
 
 def param_count(params) -> int:

@@ -1,16 +1,14 @@
-"""Decoder-only LM over superblocks, a torch copy of
-``repro.models.transformer`` (full-sequence forward and loss).
+"""Decoder-only LM over heterogeneous superblocks (dense / MoE / Mamba /
+xLSTM / VLM), a torch copy of ``repro.models.transformer``: the
+full-sequence forward and loss, and the cached one-token decode.
 
 Parameters of each position-in-superblock are stacked across superblocks
 (``blocks/p{j}/...`` leaves of shape ``(n_superblocks, ...)``), as in the
 JAX package, so the pytree and its flat plane are the same in both
 packages.  JAX runs the depth under ``lax.scan``; here a Python loop
-indexes the stacked leaves.
-
-Ported: mixers ``attn`` and ``attn_local``, FFN kinds ``dense`` and
-``none``.  ``moe``, ``mamba``, ``mlstm``, ``slstm`` and ``remat=True``
-raise ``NotImplementedError`` naming their ROADMAP item; the decode
-functions wait for the serving slice (item 10e).
+indexes the stacked leaves, and ``decode_step`` restacks each position's
+new cache.  ``remat=True`` raises ``NotImplementedError`` naming its
+ROADMAP item (10f).
 """
 from __future__ import annotations
 
@@ -20,30 +18,21 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba, xlstm_blocks as xb
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        init_mlp, init_norm, softcap,
                                        torch_dtype)
+from repro_torch.models.moe import apply_moe, init_moe
 
-_NOT_PORTED = {
-    "moe": "MoE FFN (models/moe.py) is ROADMAP item 10a",
-    "mamba": "the Mamba mixer (models/mamba.py) is ROADMAP item 10b",
-    "mlstm": "the mLSTM mixer (models/xlstm_blocks.py) is ROADMAP item 10c",
-    "slstm": "the sLSTM mixer (models/xlstm_blocks.py) is ROADMAP item 10c",
-}
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(f"not ported yet: {_NOT_PORTED[kind]}")
+_MIXER_INIT = {"attn": attn.init_attn, "attn_local": attn.init_attn,
+               "mamba": mamba.init_mamba, "mlstm": xb.init_mlstm,
+               "slstm": xb.init_slstm}
 
 
 def _check_ported(cfg: ModelConfig):
-    for j, kind in enumerate(cfg.block_pattern):
-        if kind not in ("attn", "attn_local"):
-            if kind in _NOT_PORTED:
-                raise _not_ported(kind)
+    for kind in cfg.block_pattern:
+        if kind not in _MIXER_INIT:
             raise ValueError(kind)
-        if cfg.ffn_kind(j) == "moe":
-            raise _not_ported("moe")
     if cfg.remat:
         raise NotImplementedError(
             "not ported yet: remat=True (recompute per superblock, "
@@ -51,48 +40,83 @@ def _check_ported(cfg: ModelConfig):
 
 
 def _init_block(generator, cfg: ModelConfig, pos: int, dtype):
-    p = {"norm1": init_norm(cfg, cfg.d_model, dtype),
-         "mixer": attn.init_attn(generator, cfg, dtype)}
-    if cfg.ffn_kind(pos) == "dense":
-        p["norm2"] = init_norm(cfg, cfg.d_model, dtype)
+    ffn = cfg.ffn_kind(pos)
+    dev = generator.device
+    p = {"norm1": init_norm(cfg, cfg.d_model, dtype, dev),
+         "mixer": _MIXER_INIT[cfg.block_pattern[pos]](generator, cfg, dtype)}
+    if ffn == "dense":
+        p["norm2"] = init_norm(cfg, cfg.d_model, dtype, dev)
         p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
+    elif ffn == "moe":
+        p["norm2"] = init_norm(cfg, cfg.d_model, dtype, dev)
+        p["ffn"] = init_moe(generator, cfg, dtype)
     return p
 
 
+def stack(trees):
+    """Stack same-structured pytrees along a new leading axis (a view for
+    one tree, so a single superblock is not copied)."""
+    if len(trees) == 1:
+        return tree_map(lambda x: x.unsqueeze(0), trees[0])
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
 def init_params(cfg: ModelConfig, generator):
-    """Draws on the CPU from ``generator`` (a ``torch.Generator``)."""
+    """Draws from ``generator`` (a ``torch.Generator``) on its device."""
     cfg.validate()
     _check_ported(cfg)
     dtype = torch_dtype(cfg.dtype)
+    dev = generator.device
     params = {"embed": embed_init(generator, cfg.padded_vocab, cfg.d_model,
                                   dtype)}
     blocks = {}
     for j in range(cfg.period):
-        per_sb = [_init_block(generator, cfg, j, dtype)
-                  for _ in range(cfg.n_superblocks)]
-        blocks[f"p{j}"] = tree_map(lambda *xs: torch.stack(xs), *per_sb)
+        blocks[f"p{j}"] = stack([_init_block(generator, cfg, j, dtype)
+                                 for _ in range(cfg.n_superblocks)])
     params["blocks"] = blocks
-    params["final_norm"] = init_norm(cfg, cfg.d_model, dtype)
+    params["final_norm"] = init_norm(cfg, cfg.d_model, dtype, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = embed_init(generator, cfg.padded_vocab,
                                        cfg.d_model, dtype)
     return params
 
 
-def _apply_block(cfg: ModelConfig, pos: int, p, h, positions):
-    """One attention block (``_check_ported`` has ruled out the rest)."""
-    x = apply_norm(cfg, p["norm1"], h)
-    r = attn.attn_forward(p["mixer"], cfg, x, positions,
-                          local=cfg.block_pattern[pos] == "attn_local")
-    h = h + r * cfg.residual_scale
+def _ffn(cfg: ModelConfig, pos: int, p, h):
+    """The block's FFN half: (h, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if "ffn" in p:
         x = apply_norm(cfg, p["norm2"], h)
-        h = h + apply_mlp(p["ffn"], x) * cfg.residual_scale
-    return h
+        if cfg.ffn_kind(pos) == "moe":
+            r, aux = apply_moe(p["ffn"], cfg, x)
+        else:
+            r = apply_mlp(p["ffn"], x)
+        h = h + r * cfg.residual_scale
+    return h, aux
+
+
+def _apply_block(cfg: ModelConfig, pos: int, p, h, positions):
+    kind = cfg.block_pattern[pos]
+    x = apply_norm(cfg, p["norm1"], h)
+    if kind in ("attn", "attn_local"):
+        r = attn.attn_forward(p["mixer"], cfg, x, positions,
+                              local=kind == "attn_local")
+    elif kind == "mamba":
+        r = mamba.mamba_forward(p["mixer"], cfg, x)
+    elif kind == "mlstm":
+        r = xb.mlstm_forward(p["mixer"], cfg, x)
+    else:
+        r = xb.slstm_forward(p["mixer"], cfg, x)
+    return _ffn(cfg, pos, p, h + r * cfg.residual_scale)
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
     return F.embedding(tokens, params["embed"]) * cfg.embed_scale
+
+
+def _logits(cfg: ModelConfig, params, h):
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = (h @ head.T.to(h.dtype)) * cfg.logit_scale
+    return softcap(logits, cfg.final_softcap)
 
 
 def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
@@ -101,7 +125,7 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
 
     tokens: (B, S_txt) int or None; embeds: (B, S_front, d) modality-
     frontend embeddings prepended to the token embeddings (VLM/audio stub).
-    Returns (logits (B,S,V_pad), moe_aux), aux 0 for the ported families.
+    Returns (logits (B,S,V_pad), moe_aux), aux summed over every MoE block.
     """
     _check_ported(cfg)
     parts = []
@@ -113,17 +137,73 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     B, S, _ = h.shape
     if positions is None:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for sb in range(cfg.n_superblocks):
+        aux_sb = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j in range(cfg.period):
+            p = tree_map(lambda x: x[sb], params["blocks"][f"p{j}"])
+            h, a = _apply_block(cfg, j, p, h, positions)
+            aux_sb = aux_sb + a
+        aux = aux + aux_sb
+    h = apply_norm(cfg, params["final_norm"], h)
+    if return_hidden:
+        return h, aux
+    return _logits(cfg, params, h), aux
+
+
+# ------------------------------------------------------------------ decode
+def _init_block_cache(cfg: ModelConfig, pos: int, batch: int, max_len: int,
+                      dtype, device):
+    kind = cfg.block_pattern[pos]
+    if kind in ("attn", "attn_local"):
+        return attn.init_attn_cache(cfg, batch, max_len, dtype, device)
+    if kind == "mamba":
+        return mamba.init_mamba_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return xb.init_mlstm_cache(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return xb.init_slstm_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    dtype = torch_dtype(cfg.dtype)
+    return {f"p{j}": tree_map(
+        lambda x: x[None].repeat(cfg.n_superblocks, *([1] * x.dim())),
+        _init_block_cache(cfg, j, batch, max_len, dtype, device))
+        for j in range(cfg.period)}
+
+
+def _decode_block(cfg: ModelConfig, pos_j: int, p, cache_j, h, pos):
+    kind = cfg.block_pattern[pos_j]
+    x = apply_norm(cfg, p["norm1"], h)
+    if kind in ("attn", "attn_local"):
+        r, newc = attn.attn_decode(p["mixer"], cfg, cache_j, x, pos,
+                                   local=kind == "attn_local")
+    elif kind == "mamba":
+        r, newc = mamba.mamba_decode(p["mixer"], cfg, cache_j, x, pos)
+    elif kind == "mlstm":
+        r, newc = xb.mlstm_decode(p["mixer"], cfg, cache_j, x, pos)
+    else:
+        r, newc = xb.slstm_decode(p["mixer"], cfg, cache_j, x, pos)
+    h, _ = _ffn(cfg, pos_j, p, h + r * cfg.residual_scale)
+    return h, newc
+
+
+def decode_step(cfg: ModelConfig, params, cache, token, pos):
+    """token: (B,1) int; pos: the current position.  Returns
+    (logits (B,1,V), cache), the cache a new pytree."""
+    _check_ported(cfg)
+    h = embed_tokens(cfg, params, token)
+    new = {f"p{j}": [] for j in range(cfg.period)}
     for sb in range(cfg.n_superblocks):
         for j in range(cfg.period):
             p = tree_map(lambda x: x[sb], params["blocks"][f"p{j}"])
-            h = _apply_block(cfg, j, p, h, positions)
+            c = tree_map(lambda x: x[sb], cache[f"p{j}"])
+            h, c = _decode_block(cfg, j, p, c, h, pos)
+            new[f"p{j}"].append(c)
     h = apply_norm(cfg, params["final_norm"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if return_hidden:
-        return h, aux
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = (h @ head.T.to(h.dtype)) * cfg.logit_scale
-    return softcap(logits, cfg.final_softcap), aux
+    return _logits(cfg, params, h), {k: stack(v) for k, v in new.items()}
 
 
 # ------------------------------------------------------------------ loss
@@ -133,7 +213,7 @@ def vocab_mask(cfg: ModelConfig, device=None):
 
 def next_token_loss(cfg: ModelConfig, params, tokens, *, embeds=None):
     """Causal LM loss over the token portion (frontend positions
-    excluded).  Returns (total, ce)."""
+    excluded).  Returns (total, ce), total adding the MoE aux term."""
     logits, aux = forward(cfg, params, tokens, embeds=embeds)
     n_front = 0 if embeds is None else embeds.shape[1]
     logits = logits[:, n_front:, :]

@@ -1,0 +1,275 @@
+"""xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory)
+[arXiv:2405.04517], a torch copy of ``repro.models.xlstm_blocks``.
+
+Both cells are exponential-gated with the max-stabiliser ``m_t``, whose
+carry starts at -1e30 so that the first step's forget term vanishes and
+``exp(-m)`` stays finite.  The mLSTM matrix memory
+``C_t = f_t C_{t-1} + i_t v_t k_t^T`` and the sLSTM recurrence run as
+Python loops over time where JAX runs ``lax.scan``; ``mlstm_impl="chunk"``
+selects the chunkwise-parallel mLSTM (same math, the recurrence crossing
+only chunk boundaries).  The sLSTM's GeGLU uses the tanh GELU, the default
+of ``jax.nn.gelu``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dense_init, normal
+
+_F32 = torch.float32
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def _conv4(xm, w, b):
+    """Causal depthwise conv over time, then SiLU: xm (B,S,di)."""
+    K, S = w.shape[0], xm.shape[1]
+    pad = F.pad(xm, (0, 0, K - 1, 0))
+    return F.silu(sum(pad[:, i:i + S] * w[i] for i in range(K)) + b)
+
+
+# ------------------------------------------------------------------ mLSTM
+def init_mlstm(generator, cfg: ModelConfig, dtype):
+    d = cfg.d_model
+    di = cfg.mlstm_expand * d
+    H = cfg.n_heads
+    dev = generator.device
+    return {
+        "up": dense_init(generator, d, 2 * di, dtype),
+        "conv_w": normal(generator, (4, di), 0.5, dtype),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=dev),
+        "wq": dense_init(generator, di, di, dtype),
+        "wk": dense_init(generator, di, di, dtype),
+        "wv": dense_init(generator, di, di, dtype),
+        "w_if": dense_init(generator, di, 2 * H, dtype, scale=0.02),
+        "b_if": torch.cat([torch.zeros((H,), device=dev),
+                           torch.full((H,), 3.0, device=dev)]).to(dtype),
+        "skip": torch.ones((di,), dtype=dtype, device=dev),
+        "down": dense_init(generator, di, d, dtype),
+    }
+
+
+def _mlstm_cell(carry, qkvif):
+    """One timestep.  carry: (C, n, m); q, k, v: (B,H,hd); i, f: (B,H)."""
+    C, n, m = carry
+    q, k, v, it, ft = qkvif
+    logf = F.logsigmoid(ft)                                   # (B,H)
+    m_new = torch.maximum(logf + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(logf + m - m_new)
+    C = (f_p[..., None, None] * C
+         + i_p[..., None, None] * (v[..., :, None] * k[..., None, :]))
+    n = f_p[..., None] * n + i_p[..., None] * k
+    denom = torch.maximum(torch.abs(torch.sum(n * q, dim=-1)),
+                          torch.exp(-m_new)) + 1e-6
+    h = torch.einsum("bhvk,bhk->bhv", C, q) / denom[..., None]
+    return (C, n, m_new), h
+
+
+def _mlstm_qkvif(p, cfg: ModelConfig, xm):
+    """xm: (B,S,di) pre-conv input half.  Returns per-step tensors."""
+    B, S, di = xm.shape
+    H = cfg.n_heads
+    hd = di // H
+    xc = _conv4(xm, p["conv_w"], p["conv_b"])
+    q = (xc @ p["wq"]).reshape(B, S, H, hd)
+    k = (xc @ p["wk"]).reshape(B, S, H, hd) * (hd ** -0.5)
+    v = (xm @ p["wv"]).reshape(B, S, H, hd)
+    gate = (xm @ p["w_if"]).to(_F32) + p["b_if"].to(_F32)
+    it, ft = gate[..., :H], gate[..., H:]
+    return q, k, v, it, ft, xc
+
+
+def _zero_carry(B, H, hd, device):
+    return (torch.zeros((B, H, hd, hd), dtype=_F32, device=device),
+            torch.zeros((B, H, hd), dtype=_F32, device=device),
+            torch.full((B, H), -1e30, dtype=_F32, device=device))
+
+
+def _mlstm_seq(cfg: ModelConfig, q, k, v, it, ft, B, S, H, hd):
+    carry = _zero_carry(B, H, hd, q.device)
+    q, k, v = q.to(_F32), k.to(_F32), v.to(_F32)
+    hs = []
+    for t in range(S):
+        carry, h = _mlstm_cell(carry, (q[:, t], k[:, t], v[:, t], it[:, t],
+                                       ft[:, t]))
+        hs.append(h)
+    return torch.stack(hs, dim=1)                             # (B,S,H,hd)
+
+
+def _mlstm_chunked(cfg: ModelConfig, q, k, v, it, ft, B, S, H, hd,
+                   chunk: int = 64):
+    """Chunkwise-parallel mLSTM: the sequential cell's math, with the
+    recurrence crossing only chunk boundaries and each chunk's
+    contributions an (L, L) masked product (the JAX docstring gives the
+    equations)."""
+    L = min(chunk, S)
+    if S % L:
+        raise ValueError(f"chunked mLSTM: S={S} is not a multiple of {L}")
+    C, n, m = _zero_carry(B, H, hd, q.device)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                 device=q.device))[None, :, :, None]
+    hs = []
+    for c in range(S // L):
+        sl = slice(c * L, (c + 1) * L)
+        qc, kc, vc = q[:, sl].to(_F32), k[:, sl].to(_F32), v[:, sl].to(_F32)
+        ic, fc = it[:, sl].to(_F32), ft[:, sl].to(_F32)
+        lf = F.logsigmoid(fc)                                 # (B,L,H)
+        Fc = torch.cumsum(lf, dim=1)                          # F_j
+        D = Fc[:, :, None] - Fc[:, None, :] + ic[:, None, :, :]  # (B,L,L,H)
+        D = torch.where(mask, D, -torch.inf)
+        g = Fc + m[:, None]                                   # (B,L,H)
+        m_j = torch.maximum(D.amax(dim=2), g)                 # (B,L,H)
+        w = torch.exp(D - m_j[:, :, None])                    # (B,L,L,H)
+        qk = torch.einsum("blhd,bkhd->blkh", qc, kc)          # (B,L,L,H)
+        num_intra = torch.einsum("blkh,blkh,bkhd->blhd", w, qk, vc)
+        den_intra = torch.einsum("blkh,blkh->blh", w, qk)
+        dec = torch.exp(g - m_j)                              # (B,L,H)
+        num_inter = torch.einsum("blh,bhvk,blhk->blhv", dec, C, qc)
+        den_inter = dec * torch.einsum("bhk,blhk->blh", n, qc)
+        num = num_intra + num_inter
+        den = den_intra + den_inter
+        hs.append(num / torch.maximum(torch.abs(den),
+                                      torch.exp(-m_j))[..., None])
+        # carry update at j = L
+        FL = Fc[:, -1]                                        # (B,H)
+        m_new = torch.maximum(FL + m, (FL[:, None] - Fc + ic).amax(dim=1))
+        wL = torch.exp(FL[:, None] - Fc + ic - m_new[:, None])  # (B,L,H)
+        decay = torch.exp(FL + m - m_new)
+        C = (decay[..., None, None] * C
+             + torch.einsum("blh,blhv,blhk->bhvk", wL, vc, kc))
+        n = decay[..., None] * n + torch.einsum("blh,blhk->bhk", wL, kc)
+        m = m_new
+    return torch.cat(hs, dim=1).reshape(B, S, H, hd)
+
+
+def mlstm_forward(p, cfg: ModelConfig, x):
+    B, S, d = x.shape
+    di = cfg.mlstm_expand * d
+    H = cfg.n_heads
+    hd = di // H
+    xm, z = torch.chunk(x @ p["up"], 2, dim=-1)
+    q, k, v, it, ft, xc = _mlstm_qkvif(p, cfg, xm)
+    if cfg.mlstm_impl == "chunk" and S > 1:
+        hs = _mlstm_chunked(cfg, q, k, v, it, ft, B, S, H, hd)
+    else:
+        hs = _mlstm_seq(cfg, q, k, v, it, ft, B, S, H, hd)
+    h = hs.reshape(B, S, di).to(x.dtype)
+    h = h + p["skip"] * xc
+    h = h * F.silu(z)
+    return h @ p["down"]
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device=None):
+    di = cfg.mlstm_expand * cfg.d_model
+    H = cfg.n_heads
+    C, n, m = _zero_carry(batch, H, di // H, device)
+    return {"C": C, "n": n, "m": m,
+            "conv": torch.zeros((batch, 3, di), dtype=dtype, device=device)}
+
+
+def mlstm_decode(p, cfg: ModelConfig, cache, x, pos):
+    del pos
+    B, _, d = x.shape
+    di = cfg.mlstm_expand * d
+    H = cfg.n_heads
+    hd = di // H
+    xm, z = torch.chunk(x[:, 0] @ p["up"], 2, dim=-1)
+    w = p["conv_w"]
+    K = w.shape[0]
+    buf = cache["conv"]
+    conv = sum(buf[:, i] * w[i] for i in range(K - 1)) + xm * w[K - 1]
+    xc = F.silu(conv + p["conv_b"])
+    new_buf = torch.cat([buf[:, 1:], xm[:, None].to(buf.dtype)], dim=1)
+    q = (xc @ p["wq"]).reshape(B, H, hd).to(_F32)
+    k = ((xc @ p["wk"]) * (hd ** -0.5)).reshape(B, H, hd).to(_F32)
+    v = (xm @ p["wv"]).reshape(B, H, hd).to(_F32)
+    gate = (xm @ p["w_if"]).to(_F32) + p["b_if"].to(_F32)
+    it, ft = gate[..., :H], gate[..., H:]
+    (C, n, m), h = _mlstm_cell((cache["C"], cache["n"], cache["m"]),
+                               (q, k, v, it, ft))
+    h = h.reshape(B, di).to(x.dtype)
+    h = h + p["skip"] * xc
+    h = h * F.silu(z)
+    return (h @ p["down"])[:, None], {"C": C, "n": n, "m": m,
+                                      "conv": new_buf}
+
+
+# ------------------------------------------------------------------ sLSTM
+def init_slstm(generator, cfg: ModelConfig, dtype):
+    d = cfg.d_model
+    H = cfg.n_heads
+    hd = d // H
+    pf = -(-int(cfg.slstm_proj * d) // 128) * 128    # aligned to 128
+    return {
+        "wx": dense_init(generator, d, 4 * d, dtype),
+        # recurrent weights, block-diagonal per head: (H, hd, 4*hd)
+        "r": normal(generator, (H, hd, 4 * hd), hd ** -0.5, dtype),
+        "b": torch.zeros((4 * d,), dtype=dtype, device=generator.device),
+        "up_g": dense_init(generator, d, pf, dtype),
+        "up_v": dense_init(generator, d, pf, dtype),
+        "down": dense_init(generator, pf, d, dtype),
+    }
+
+
+def _slstm_cell(p, cfg: ModelConfig, carry, xg):
+    """carry: (c, n, h, m), each (B,H,hd).  xg: (B, 4d) pre-activations."""
+    c, n, h, m = carry
+    B = xg.shape[0]
+    H = cfg.n_heads
+    hd = cfg.d_model // H
+    rec = torch.einsum("bhd,hdk->bhk", h, p["r"].to(_F32))   # (B,H,4hd)
+    g = xg.reshape(B, H, 4 * hd).to(_F32) + rec
+    zt, it, ft, ot = torch.chunk(g, 4, dim=-1)                # (B,H,hd)
+    z = torch.tanh(zt)
+    o = torch.sigmoid(ot)
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(logf + m - m_new)
+    c = f_p * c + i_p * z
+    n = f_p * n + i_p
+    h_new = o * c / torch.clamp(n, min=1e-6)
+    return (c, n, h_new, m_new)
+
+
+def _slstm_carry(B, H, hd, device):
+    z = lambda: torch.zeros((B, H, hd), dtype=_F32, device=device)
+    return (z(), z(), z(),
+            torch.full((B, H, hd), -1e30, dtype=_F32, device=device))
+
+
+def slstm_forward(p, cfg: ModelConfig, x):
+    B, S, d = x.shape
+    H = cfg.n_heads
+    xg = x @ p["wx"] + p["b"]
+    carry = _slstm_carry(B, H, d // H, x.device)
+    hs = []
+    for t in range(S):
+        carry = _slstm_cell(p, cfg, carry, xg[:, t])
+        hs.append(carry[2])
+    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    # post up / down projection (GeGLU, factor slstm_proj)
+    return (_gelu(h @ p["up_g"]) * (h @ p["up_v"])) @ p["down"]
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, dtype, device=None):
+    del dtype
+    c, n, h, m = _slstm_carry(batch, cfg.n_heads,
+                              cfg.d_model // cfg.n_heads, device)
+    return {"c": c, "n": n, "h": h, "m": m}
+
+
+def slstm_decode(p, cfg: ModelConfig, cache, x, pos):
+    del pos
+    B, _, d = x.shape
+    xg = x[:, 0] @ p["wx"] + p["b"]
+    carry = (cache["c"], cache["n"], cache["h"], cache["m"])
+    c, n, h, m = _slstm_cell(p, cfg, carry, xg)
+    hh = h.reshape(B, d).to(x.dtype)
+    y = (_gelu(hh @ p["up_g"]) * (hh @ p["up_v"])) @ p["down"]
+    return y[:, None], {"c": c, "n": n, "h": h, "m": m}

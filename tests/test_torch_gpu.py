@@ -222,3 +222,57 @@ def test_buffered_block_merges_bank_and_flushes_on_the_kernel(cuda,
     assert out["cpu"][3] == 0 and out["cuda"][3] == 2 * 2 + 1
     for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b",
+                                  "xlstm-350m", "seamless-m4t-medium"])
+def test_new_mixers_on_card_match_cpu(cuda, arch):
+    """The MoE, Mamba, xLSTM and enc-dec smoke models on the card: forward
+    and eight decode steps equal the CPU's from the same weights (fp32,
+    TF32 off; capacity dispatch for the MoE)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import registry
+
+    cfg = get_config(arch, smoke=True)
+    if cfg.n_experts:
+        cfg = cfg.replace(moe_impl="capacity", moe_group=8,
+                          moe_capacity=0.5)
+    cpu = registry.init_params(cfg, torch.Generator().manual_seed(0))
+    dev = tree_map(lambda x: x.to(cuda), cpu)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 8)))
+    batch = {"tokens": toks}
+    if cfg.frontend:
+        batch["embeds"] = torch.tensor(
+            rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32))
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    want, _ = registry.forward(cfg, cpu, batch)
+    got, _ = registry.forward(cfg, dev, on_card)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=1e-5)
+    c_cpu = registry.init_cache(cfg, 2, 8)
+    c_dev = registry.init_cache(cfg, 2, 8, device=cuda)
+    for t in range(8):
+        a, c_cpu = registry.decode_step(cfg, cpu, c_cpu, toks[:, t:t + 1], t)
+        b, c_dev = registry.decode_step(cfg, dev, c_dev,
+                                        on_card["tokens"][:, t:t + 1], t)
+        torch.testing.assert_close(b.cpu(), a, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "jamba-v0.1-52b",
+                                  "xlstm-350m", "seamless-m4t-medium"])
+def test_cuda_generator_draws_on_the_card(cuda, arch):
+    """A CUDA generator draws every leaf on the card, with the shapes and
+    dtypes a CPU generator gives."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import registry
+
+    cfg = get_config(arch, smoke=True).replace(dtype="bfloat16")
+    on_card = registry.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0))
+    on_host = registry.init_params(cfg, torch.Generator().manual_seed(0))
+    for a, b in zip(tree_leaves(on_card), tree_leaves(on_host)):
+        assert a.device.type == "cuda" and b.device.type == "cpu"
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16
+        assert bool(torch.isfinite(a.float()).all())
