@@ -124,7 +124,30 @@ Phases, each printing one JSON line:
               step and a newest of another shape: one reload, two steps
               skipped, the reloaded leaves bf16 and equal to the plane's
               model; no kernel launch; then ``examples/torch_serve_demo.py``
-              as a process.
+              as a process;
+  18. train   ``repro_torch.launch.train`` at full OLMo-1B width and depth
+              (16 layers, 1.18 G parameters, bf16 with fp32 AdamW moments,
+              WSD, batch 8 x 128, 20 steps) as a process: tokens per
+              second, the median step, peak memory, the first and last ce,
+              the checkpoint's bytes and seconds, its restored bf16 leaves
+              equal to the trained ones; then in process one step at 2048
+              tokens (OLMo-1B's context) from the same weights with remat
+              off and on: loss and gradients within one bf16 rounding,
+              both peaks; no kernel launch;
+  19. lm_example ``examples/torch_fedrac_lm_train.py`` as a process at
+              its defaults: it exits 0 with its assert (the loss fell) held;
+  20. mesh    which backend carries CUDA tensors between two ranks on the
+              card (gloo, nccl); then ``repro_torch.launch.sim_run`` on
+              sim_main's configuration in process, and with
+              ``--mesh-shape`` over ranks started as processes (as
+              torch.distributed.run starts them): two ranks on the 1D mesh
+              where a backend allows them (else one), and ``2x2
+              --no-tp-forward`` where its all_gather works too.  Every
+              record's host fields equal the unsharded run's, losses and
+              each rank's final planes within the parity tolerance, each
+              rank's fedagg launches equal to its records' count, and
+              fedagg held against its plain version at every per-rank
+              (C/n, D/m) shape.
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no last line.  It exits nonzero at once
@@ -211,6 +234,34 @@ SIM_CLI_MAIN = "import sys, chip_smoke; chip_smoke.sim_cli_child(sys.argv[1:])"
 # the resume phase: the sync run dies inside the block of this round, the
 # async run at this merge event
 RESUME_KILL_MID_BLOCK, RESUME_KILL_AT_MERGE = 5, 10
+# the train phase: launch/train.py at full OLMo-1B width and depth, as a
+# process (``train_child``), one log line a step; then one step at OLMo-1B's
+# context with and without remat, from the same weights, at a batch whose
+# unrematerialized activations fit the card beside the earlier phases
+TRAIN_ARGS = ["--arch", "olmo-1b", "--steps", "20", "--batch", "8",
+              "--seq", "128", "--log-every", "1"]
+TRAIN_CHILD = "import sys, chip_smoke; chip_smoke.train_child(sys.argv[1:])"
+REMAT_B, REMAT_S = 4, 2048
+# remat recomputes each superblock's forward: its loss and gradients may
+# differ from the stored activations' only by bf16 rounding, at most one
+# rounding (2**-8) of each leaf's largest gradient element
+REMAT_TOL = 2.0 ** -8
+# the mesh phase: sim_run on sim_main's configuration (full-width CNN,
+# "mixed", "buffer", blocks of 4 rounds), each rank a process
+# (``mesh_child``) in the world the phase starts, as torch.distributed.run
+# would; the unsharded run in process
+MESH_ARGS = ["--trace", "mixed", "--mar-policy", "buffer",
+             "--rounds-per-dispatch", "4", "--rounds", str(SIM_ROUNDS),
+             "--participants", "40", "--samples", "2400", "--base-width",
+             "1.0", "--compact-to", "4", "--eval-every", "4", "--seed",
+             str(SIM_TRACE_SEED)]
+MESH_CHILD = "import sys, chip_smoke; chip_smoke.mesh_child(sys.argv[1:])"
+# where the run's own response to a one-ulp nudge of its initial
+# parameters exceeds the parity tolerance, a mesh run may differ from the
+# unsharded one by this many times that response
+MESH_NUDGE_FACTOR = 16
+PROBE_CHILD = ("import sys, chip_smoke; "
+               "chip_smoke.collective_probe_child(sys.argv[1], sys.argv[2])")
 
 
 def emit(obj):
@@ -608,45 +659,18 @@ def fedagg_record_path(report_out):
 
 
 def sim_cli_child(argv):
-    """One launcher process of the resume phase: ``sim_run.main(argv)`` with
-    run-to-run deterministic cuDNN (the phase compares runs bit for bit) and
-    TF32 off, as in the parent, and with ``sim_classes``' engine and
-    simulator in place of the launcher's.  A process that runs to its end
-    writes beside its ``--report-out`` (``fedagg_record_path``) the (C, D)
-    shapes fedagg was given, its launches in ``sim.run`` and, in a run that
-    did not resume, the launches its records imply."""
-    import torch
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import server as srv
-    from repro_torch.kernels.fedagg import ops as f_ops
-    from repro_torch.launch import sim_run
-    from repro_torch.obs import make_observability
-    ShapeFedRAC, CountingSim = sim_classes(srv, sim_run.HeterogeneitySim)
-
-    class LauncherSim(CountingSim):
-        def __init__(self, *a, obs=None, **kw):
-            # a registry that counts agg/bank_compressions
-            super().__init__(*a, obs=obs or make_observability(trace=False),
-                             **kw)
-            LauncherSim.last = self
-
-        def run(self, test):
-            f_ops.weighted_aggregate.launches = 0
-            return super().run(test)
-
-    srv.FedRAC, sim_run.HeterogeneitySim = ShapeFedRAC, LauncherSim
-    report = sim_run.main(argv)
-    sim = LauncherSim.last
-    rec = {"launches": f_ops.weighted_aggregate.launches,
-           "shapes": sorted(sim.fl.fedagg_shapes)}
+    """One launcher process of the resume phase: ``sim_run.main(argv)``
+    through ``launcher_sim_run`` (run-to-run deterministic cuDNN, since the
+    phase compares runs bit for bit, and TF32 off, as in the parent).  A
+    process that runs to its end writes beside its ``--report-out``
+    (``fedagg_record_path``) the (rows, columns) shapes fedagg was given,
+    its launches in ``sim.run`` and, in a run that did not resume, the
+    launches its records imply."""
+    shapes = set()
+    _, _, launches, expected = launcher_sim_run(argv, shapes)
+    rec = {"launches": launches, "shapes": sorted(shapes)}
     if "--resume" not in argv:
-        comp = int(sim.obs.registry.counter("agg/bank_compressions").value)
-        rec["expected_launches"] = expected_fedagg_launches(
-            report.rows, sim.terminal, comp,
-            sim.fl.cfg.aggregation == "buffered")
+        rec["expected_launches"] = expected
     if "--report-out" in argv:
         with open(fedagg_record_path(argv[argv.index("--report-out") + 1]),
                   "w") as f:
@@ -663,7 +687,9 @@ def resume_runs(base, out_dir, env, compare_reports, manager_cls):
     control's, each control launched fedagg as often as its records imply
     and each resumed run launched it; returns what the phase prints, with
     each finished process's fedagg record (its shapes are checked by the
-    caller)."""
+    caller).  The sync and the async chain run side by side on the card,
+    so their processes' seconds overlap."""
+    from concurrent.futures import ThreadPoolExecutor
     procs = []
 
     def cli(tag, flags, expect):
@@ -681,10 +707,8 @@ def resume_runs(base, out_dir, env, compare_reports, manager_cls):
         return proc
 
     out, fedagg = {}, {}
-    for mode, extra, kill in (
-            ("sync", [], ["--kill-mid-block", str(RESUME_KILL_MID_BLOCK)]),
-            ("async", ["--mode", "async"],
-             ["--kill-at-round", str(RESUME_KILL_AT_MERGE)])):
+
+    def chain(mode, extra, kill):
         ck = str(out_dir / f"ckpt_{mode}")
         ctrl, res = (str(out_dir / f"{mode}_{t}.json")
                      for t in ("control", "resumed"))
@@ -728,6 +752,14 @@ def resume_runs(base, out_dir, env, compare_reports, manager_cls):
                          str(e["step"]): sum(v["bytes"] for v in
                                              e["files"].values())
                          for e in kept}}
+
+    with ThreadPoolExecutor(2) as pool:
+        for done in [pool.submit(chain, *c) for c in (
+                ("sync", [], ["--kill-mid-block",
+                              str(RESUME_KILL_MID_BLOCK)]),
+                ("async", ["--mode", "async"],
+                 ["--kill-at-round", str(RESUME_KILL_AT_MERGE)]))]:
+            done.result()
     # seconds per checkpoint write: the newest sync payload, written again
     _, meta, arrays = manager_cls(str(out_dir / "ckpt_sync")).load_latest()
     mgr = manager_cls(str(out_dir / "write_timing"), keep=1)
@@ -870,6 +902,264 @@ def load_example(name):
     return mod
 
 
+# ----------------------------------------------------------------- training
+def train_child(argv):
+    """The train phase's process: ``repro_torch.launch.train.main(argv)``
+    with TF32 off, as in the parent.  Besides the launcher's lines it
+    prints one JSON line: the peak device memory, the seconds of each
+    step's gradient clipping and optimizer update (each fenced by a
+    synchronize), the checkpoint's bytes and write seconds, and whether
+    the restored leaves equal the trained ones bit for bit."""
+    import torch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.ckpt import checkpoint
+    from repro_torch.launch import train
+    from repro_torch.optim import optimizers
+    split = {"clip": [], "update": []}
+
+    def fenced(fn, key):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    get_optimizer = optimizers.get
+
+    def timed_optimizer(name, **kw):
+        opt = get_optimizer(name, **kw)
+        return optimizers.Optimizer(opt.init, fenced(opt.update, "update"))
+
+    optimizers.clip_by_global_norm = fenced(optimizers.clip_by_global_norm,
+                                            "clip")
+    optimizers.get = timed_optimizer
+    saved = {}
+    save_step = checkpoint.save_step
+
+    def timed_save_step(ckpt_dir, step, tree, keep=3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_step(ckpt_dir, step, tree, keep)
+        saved.update(path=path, seconds=time.perf_counter() - t0,
+                     bytes=os.path.getsize(path))
+        restored = checkpoint.restore(path)
+        leaves = checkpoint._flatten(tree)
+        saved["restored_equal"] = len(restored) == len(leaves) and all(
+            torch.equal(torch.as_tensor(restored[k]), v.detach().cpu())
+            for k, v in leaves)
+        saved["dtypes"] = sorted({str(v.dtype) for _, v in leaves})
+        return path
+
+    checkpoint.save_step = timed_save_step
+    from repro_torch.kernels.distill import ops as d_ops
+    from repro_torch.kernels.fedagg import ops as f_ops
+    from repro_torch.kernels.flash import ops as a_ops
+    kernels = {"fedagg": f_ops.weighted_aggregate,
+               "distill": d_ops.kd_loss_rows,
+               "flash": a_ops.flash_attention_bh}
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses = train.main(argv)
+    print(json.dumps({"peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "ckpt": saved, "losses": losses, "split_s": split,
+                      "launches": {n: k.launches
+                                   for n, k in kernels.items()}}),
+          flush=True)
+
+
+def remat_step(torch, registry, cfg, params, batch):
+    """One loss and gradient at ``cfg`` (its ``remat`` as set): (loss,
+    grads, seconds, peak bytes)."""
+    from repro_torch.core.tree import tree_leaves
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, _ = registry.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    torch.cuda.synchronize()
+    return (loss.detach(), grads, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+# --------------------------------------------------------------------- mesh
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(code, args, world, env):
+    """``python -c code *args`` as ``world`` rank processes of one
+    torch.distributed world on this host (``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT`` in each one's environment, as
+    torch.distributed.run sets them); returns the processes, in rank
+    order, and the time they started (``wait_ranks`` collects them)."""
+    port = free_port()
+    procs = []
+    for r in range(world):
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, *args], cwd=ROOT,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r),
+                     WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs, time.perf_counter()
+
+
+def wait_ranks(started, timeout=900):
+    """The (exit code, stdout, stderr) of each process ``start_ranks``
+    started, and the seconds from their start to the last one's end.
+    Every process is ended before it returns."""
+    procs, t0 = started
+    try:
+        deadline = time.monotonic() + timeout
+        outs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+                for p in procs]
+        return ([(p.returncode, *o) for p, o in zip(procs, outs)],
+                time.perf_counter() - t0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def collective_probe_child(backend, out_path):
+    """One rank of the backend probe: join a world of ``backend`` with
+    every rank on ``cuda:0``, all_reduce and all_gather a CUDA tensor, and
+    write what happened."""
+    import torch
+    import torch.distributed as dist
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    res = {"backend": backend}
+    try:
+        dist.init_process_group(backend, init_method="env://", rank=rank,
+                                world_size=world)
+        x = torch.full((1024,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        res["all_reduce"] = float(x[0]) == world * (world + 1) / 2
+        parts = [torch.empty(1024, device="cuda") for _ in range(world)]
+        dist.all_gather(parts, torch.full((1024,), float(rank), device="cuda"))
+        torch.cuda.synchronize()
+        res["all_gather"] = [float(p[0]) for p in parts] == list(
+            map(float, range(world)))
+        dist.destroy_process_group()
+    except Exception as e:      # the probe records what the backend refused
+        res["error"] = f"{type(e).__name__}: {str(e)[:300]}"
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(res))
+
+
+def launcher_sim_run(argv, shapes, nudge=0.0):
+    """``sim_run.main(argv)`` with run-to-run deterministic cuDNN and TF32
+    off, ``sim_classes``' engine and simulator in place of the launcher's,
+    and the (rows, columns) of every plane the fedagg route is given
+    (``aggregation.aggregate_plane``) added to ``shapes``; ``nudge``
+    scales every initial parameter by (1 + nudge).  Returns (report,
+    simulator, fedagg launches in ``sim.run``, the launches its records
+    imply)."""
+    import torch
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import aggregation, server as srv
+    from repro_torch.kernels.fedagg import ops as f_ops
+    from repro_torch.launch import sim_run
+    from repro_torch.obs import make_observability
+    from repro_torch.core.tree import tree_map
+    ShapeFedRAC, CountingSim = sim_classes(srv, sim_run.HeterogeneitySim)
+    kernel = f_ops.weighted_aggregate
+    aggregate_plane = aggregation.aggregate_plane
+
+    class Engine(ShapeFedRAC):
+        def init_params(self, level):
+            p = super().init_params(level)
+            return tree_map(lambda x: x * (1.0 + nudge), p) if nudge else p
+
+    def recording(plane, weights):
+        shapes.add(tuple(plane.shape))
+        return aggregate_plane(plane, weights)
+
+    class LauncherSim(CountingSim):
+        def __init__(self, *a, obs=None, **kw):
+            super().__init__(*a, obs=obs or make_observability(trace=False),
+                             **kw)
+            LauncherSim.last = self
+
+        def run(self, test):
+            kernel.launches = 0
+            return super().run(test)
+
+    saved = (srv.FedRAC, sim_run.HeterogeneitySim)
+    srv.FedRAC, sim_run.HeterogeneitySim = Engine, LauncherSim
+    aggregation.aggregate_plane = recording
+    try:
+        report = sim_run.main(argv)
+    finally:
+        srv.FedRAC, sim_run.HeterogeneitySim = saved
+        aggregation.aggregate_plane = aggregate_plane
+    sim = LauncherSim.last
+    comp = int(sim.obs.registry.counter("agg/bank_compressions").value)
+    return (report, sim, kernel.launches,
+            expected_fedagg_launches(report.rows, sim.terminal, comp,
+                                     sim.fl.cfg.aggregation == "buffered"))
+
+
+def mesh_child(argv):
+    """One rank of the mesh phase (its world in the environment): the
+    launcher through ``launcher_sim_run``; writes the rank's fedagg record
+    and final planes beside ``--report-out``."""
+    import numpy as np
+    shapes = set()
+    report, sim, launches, expected = launcher_sim_run(argv, shapes)
+    rank = int(os.environ["RANK"])
+    out = argv[argv.index("--report-out") + 1]
+    Path(f"{out}.rank{rank}.json").write_text(json.dumps(
+        {"rank": rank, "launches": launches, "expected_launches": expected,
+         "shapes": sorted(shapes)}))
+    np.savez(f"{out}.rank{rank}.planes.npz",
+             **{str(l): sim.fl.plane_of(l, p).cpu().numpy()
+                for l, p in sim.params.items()})
+
+
+def report_parts(doc):
+    """A report's rows split into the exact host part (every cluster field
+    but the loss and accuracy) and, per record, each cluster's (loss,
+    accuracy)."""
+    host, vals = [], []
+    for r in doc["rows"]:
+        host.append({k: v for k, v in r.items() if k != "clusters"})
+        host.extend({k: v for k, v in c.items()
+                     if k not in ("mean_loss", "acc")}
+                    for c in r["clusters"])
+        vals.append([(c["mean_loss"], c["acc"]) for c in r["clusters"]])
+    return host, vals
+
+
+def accuracy_gap(vals, ref):
+    """The largest accuracy difference between two reports' records."""
+    return max((abs(a[1] - b[1]) for v, w in zip(vals, ref)
+                for a, b in zip(v, w)
+                if a[1] is not None and b[1] is not None), default=0.0)
+
+
+def loss_shares(vals, ref):
+    """Per record, the parity tolerance's share of the largest loss gap."""
+    return [tolerance_share([c[0] for c in v], [c[0] for c in w])
+            for v, w in zip(vals, ref)]
+
+
 # ----------------------------------------------------------------- LM families
 def prefill_vs_decode(torch, registry, encdec, moe, cfg, device, B, S, seed,
                       nudge=False):
@@ -988,6 +1278,312 @@ class LogLines(logging.Handler):
 
     def emit(self, record):
         self.lines.append(record.getMessage())
+
+
+def phase_train(torch, dev, env, zero_counts, read_counts):
+    """Phase 18, ``train``: ``repro_torch.launch.train`` at full OLMo-1B
+    width and depth as a process (``train_child``), then one step at its
+    context with remat off and on, from the same weights.  Returns the
+    launches (the process's and the two steps')."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scaling import param_count
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import lm_batches, make_lm_corpus
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    train_dir = ROOT / "build" / "chip_smoke" / "train"
+    shutil.rmtree(train_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", TRAIN_CHILD, *TRAIN_ARGS,
+                           "--ckpt-dir", str(train_dir)],
+                          capture_output=True, text=True, timeout=900,
+                          env=env, cwd=ROOT)
+    train_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.train exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    out = proc.stdout.strip().splitlines()
+    extra = json.loads(out[-1])
+    tcfg = get_config("olmo-1b")
+    batch_tokens = (int(TRAIN_ARGS[TRAIN_ARGS.index("--batch") + 1])
+                    * int(TRAIN_ARGS[TRAIN_ARGS.index("--seq") + 1]))
+    rates = [float(l.split("tok/s=")[1].replace(",", ""))
+             for l in out if l.startswith("step ")]
+    step_s = [batch_tokens / r for r in rates]
+    n_params = int(param_count(tcfg))
+    ck, losses = extra["ckpt"], extra["losses"]
+    if not (out[0].startswith(f"arch={tcfg.name} params=")
+            and "mesh={'data': 1, 'model': 1}" in out[0]
+            and len(rates) == 20 and out[-2].startswith("final ce: ")
+            and f"saved {ck['path']}" in out
+            and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"launch.train output: {out[:3]} ... "
+                             f"{out[-3:]}")
+    if not (ck["restored_equal"] and ck["dtypes"] == ["torch.bfloat16"]):
+        raise AssertionError(f"the train checkpoint does not restore the "
+                             f"trained bf16 leaves: {ck}")
+    # one step at OLMo-1B's context, from the same weights, remat off/on
+    params = train_mod.init_train_params(tcfg, 0, dev)
+    n_drawn = sum(x.numel() for x in tree_leaves(params))
+    if n_drawn != n_params:
+        raise AssertionError(f"drew {n_drawn} parameters, the config has "
+                             f"{n_params}")
+    toks = lm_batches(make_lm_corpus(tcfg.vocab_size, 4 * REMAT_S, seed=0),
+                      REMAT_B, REMAT_S, 1, seed=0)[0]
+    batch = train_mod.lm_batch(tcfg, toks, dev)
+    plain = remat_step(torch, registry, tcfg, params, batch)
+    remat = remat_step(torch, registry, tcfg.replace(remat=True), params,
+                       batch)
+    loss_gap = abs(float(plain[0]) - float(remat[0]))
+    grad_share = max(float((a.float() - b.float()).abs().max())
+                     / max(float(a.float().abs().max()), 1e-30)
+                     for a, b in zip(plain[1], remat[1]))
+    remat_rec = {"batch": REMAT_B, "seq": REMAT_S,
+                 "loss": {"off": float(plain[0]), "on": float(remat[0])},
+                 "loss_gap": loss_gap, "grad_max_share": grad_share,
+                 "tolerance": REMAT_TOL,
+                 "seconds": {"off": plain[2], "on": remat[2]},
+                 "peak_mem_bytes": {"off": plain[3], "on": remat[3]}}
+    del params, plain, remat, batch
+    torch.cuda.empty_cache()
+    if not (loss_gap <= REMAT_TOL * abs(remat_rec["loss"]["off"])
+            and grad_share <= REMAT_TOL):
+        raise AssertionError(f"remat=True differs from remat=False: "
+                             f"{remat_rec}")
+    # the launcher's launches (its process) and the two steps' (here)
+    launches = {k: v + extra["launches"][k]
+                for k, v in read_counts().items()}
+    if any(launches.values()):
+        raise AssertionError(f"train launched {launches}")
+    emit({"phase": "train", "argv": TRAIN_ARGS, "arch": tcfg.name,
+          "layers": tcfg.n_layers, "d_model": tcfg.d_model,
+          "params": n_params, "dtype": tcfg.dtype,
+          "optimizer": "adamw, fp32 moments", "schedule": "wsd",
+          "process_seconds": train_s,
+          "tokens_per_second": len(step_s) * batch_tokens / sum(step_s),
+          "median_step_s": sorted(step_s)[len(step_s) // 2],
+          "first_step_s": step_s[0],
+          "median_clip_s": sorted(extra["split_s"]["clip"])[
+              len(step_s) // 2],
+          "median_update_s": sorted(extra["split_s"]["update"])[
+              len(step_s) // 2],
+          "peak_mem_bytes": extra["peak_mem_bytes"],
+          "ce_first": losses[0], "ce_last": losses[-1],
+          "ckpt_bytes": ck["bytes"], "ckpt_seconds": ck["seconds"],
+          "restored_equal": ck["restored_equal"],
+          "stdout_head": out[:2], "stdout_tail": out[-3:-1],
+          "remat": remat_rec, "launches": launches})
+    return launches
+
+
+def phase_lm_example(env):
+    """Phase 19, ``lm_example``: ``examples/torch_fedrac_lm_train.py`` as a
+    process at its defaults; it exits 0 with its assert (the loss fell)
+    held."""
+    ex_dir = ROOT / "build" / "chip_smoke" / "lm_example"
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable,
+                           str(ROOT / "examples" / "torch_fedrac_lm_train.py"),
+                           "--ckpt-dir", str(ex_dir)],
+                          capture_output=True, text=True, timeout=600,
+                          env=env, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torch_fedrac_lm_train exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    out = proc.stdout.strip().splitlines()
+    emit({"phase": "lm_example",
+          "argv": ["--ckpt-dir", str(ex_dir.relative_to(ROOT))],
+          "seconds": secs, "exit_code": proc.returncode,
+          "first_line": out[0], "last_lines": out[-3:],
+          "ckpt": sorted(p.name for p in ex_dir.iterdir())})
+
+
+def tolerance_share(got, want):
+    """The largest |got - want| / (atol + rtol |want|) over the elements
+    (the parity tolerance's share; NaN pairs, a cluster with no live
+    member in both runs, count as equal)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    both_nan = np.isnan(got) & np.isnan(want)
+    share = np.abs(got - want) / (PARITY_ATOL + PARITY_RTOL * np.abs(want))
+    share = np.where(both_nan, 0.0, share)
+    return float(np.nanmax(share, initial=0.0)) if not np.isnan(
+        share).any() else float("inf")
+
+
+def mesh_worlds(started, start_mesh, unsharded, mesh_dir):
+    """The mesh phase's runs: the unsharded and nudged runs in this
+    process while the probes and the one-rank mesh (in ``started``) run;
+    then, by what the gloo probe found, the two-rank and 2x2 meshes
+    together.  Returns (probes, {mesh shape: (rank results, seconds)},
+    the unsharded run, the nudged run); ``started`` ends empty."""
+    uns = unsharded("unsharded")
+    nud = unsharded("nudged", 2.0 ** -23)
+    probes, done = {}, {}
+    for b in ("gloo", "nccl"):
+        res, secs = wait_ranks(started.pop(b), timeout=180)
+        path = mesh_dir / f"probe_{b}.json"
+        probes[b] = (json.loads(path.read_text()) if path.exists()
+                     else {"error": f"exit codes {[r[0] for r in res]}: "
+                                    f"{res[0][2][-300:]}"})
+        probes[b]["seconds"] = secs
+    # the launcher picks gloo for two ranks on one card (launch.mesh.
+    # default_backend): the probe says whether gloo carries them
+    gloo = probes["gloo"]
+    if gloo.get("all_reduce"):
+        started["2"] = start_mesh("2")
+        if gloo.get("all_gather"):
+            started["2x2"] = start_mesh("2x2")
+    for shape in list(started):
+        done[shape] = wait_ranks(started.pop(shape))
+    return probes, done, uns, nud
+
+
+def phase_mesh(torch, dev, env, n_test, zero_counts):
+    """Phase 20, ``mesh``: which backend carries CUDA tensors between two
+    ranks on this card; then ``sim_run`` on sim_main's configuration
+    unsharded (in process; once more with every initial parameter nudged
+    by one fp32 ulp, the run's own response to rounding) and on meshes of
+    ranks (one process each, as ``mesh_child``): one rank, two ranks on
+    the 1D mesh where a backend allows them, and ``2x2 --no-tp-forward``
+    where its all_gather works too.  Every record's host fields equal the
+    unsharded run's; each record's losses and each rank's final planes
+    within the parity tolerance, or within MESH_NUDGE_FACTOR times what
+    the nudge moved them where the run's own conditioning exceeds it
+    (a rank trains C/n members, and cuBLAS and cuDNN round another batch
+    shape otherwise); each rank's fedagg launches equal to its records'
+    count; fedagg held against its plain version at every per-rank shape.
+    The rank worlds share the card with each other and with the in-process
+    runs (``mesh_worlds``), so their seconds overlap.  Returns (the
+    unsharded run's fedagg launches, {mesh shape: launches of each
+    rank})."""
+    import numpy as np
+    from repro_torch.kernels.fedagg import ops as f_ops, ref as f_ref
+    mesh_dir = ROOT / "build" / "chip_smoke" / "mesh"
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    mesh_dir.mkdir(parents=True)
+
+    def start_mesh(shape):
+        n, m = (int(x) for x in (shape + "x1").split("x")[:2])
+        out = mesh_dir / f"mesh_{shape}.json"
+        argv = MESH_ARGS + ["--mesh-shape", shape, "--report-out", str(out)]
+        if m > 1:
+            argv.append("--no-tp-forward")
+        return start_ranks(MESH_CHILD, argv, n * m, env)
+
+    def unsharded(name, nudge=0.0):
+        shapes = set()
+        out = mesh_dir / f"{name}.json"
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, sim, launches, expected = launcher_sim_run(
+                MESH_ARGS + ["--report-out", str(out)], shapes, nudge=nudge)
+        secs = time.perf_counter() - t0
+        torch.backends.cudnn.deterministic = False
+        if launches != expected:
+            raise AssertionError(f"{name} launcher: fedagg {launches}, "
+                                 f"records imply {expected}")
+        planes = {str(l): sim.fl.plane_of(l, p).cpu().numpy()
+                  for l, p in sim.params.items()}
+        return (report_parts(json.loads(out.read_text())), planes,
+                {"seconds": secs, "launches": launches,
+                 "expected_launches": expected,
+                 "fedagg_shapes": sorted(shapes)})
+
+    # the worlds share the card: the probes and the one-rank mesh start
+    # together, beside the unsharded runs in this process, then the
+    # multi-rank meshes together; their seconds overlap
+    started = {}
+    try:
+        for b in ("gloo", "nccl"):
+            started[b] = start_ranks(
+                PROBE_CHILD, [b, str(mesh_dir / f"probe_{b}.json")], 2, env)
+        started["1"] = start_mesh("1")
+        probes, done, uns, nud = mesh_worlds(started, start_mesh, unsharded,
+                                             mesh_dir)
+    finally:
+        for procs, _ in started.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    (uns_host, uns_vals), uns_planes, uns_rec = uns
+    (nud_host, nud_vals), nud_planes, _ = nud
+
+    nudge = {"host_equal": nud_host == uns_host,
+             "max_accuracy_gap": accuracy_gap(nud_vals, uns_vals),
+             "loss_share_by_round": loss_shares(nud_vals, uns_vals),
+             "plane_share": max(tolerance_share(nud_planes[l], w)
+                                for l, w in uns_planes.items())}
+    # each record may move as far as MESH_NUDGE_FACTOR times the nudge
+    # moved it, and always as far as the parity tolerance
+    allowed = {"loss_by_round": [max(1.0, MESH_NUDGE_FACTOR * x)
+                                 for x in nudge["loss_share_by_round"]],
+               "plane": max(1.0, MESH_NUDGE_FACTOR * nudge["plane_share"])}
+    runs, failures = {}, []
+    for shape, (res, secs) in done.items():
+        n, m = (int(x) for x in (shape + "x1").split("x")[:2])
+        out = mesh_dir / f"mesh_{shape}.json"
+        bad = [(r, rc, err[-1500:]) for r, (rc, _, err) in enumerate(res)
+               if rc != 0]
+        if bad:
+            raise AssertionError(f"mesh {shape}: ranks failed {bad}")
+        backend = res[0][1].split("backend=")[1].split()[0]
+        host, vals = report_parts(json.loads(out.read_text()))
+        if host != uns_host:
+            failures.append(f"mesh {shape}: the records' host fields "
+                            "differ from the unsharded run's")
+        acc_gap = accuracy_gap(vals, uns_vals)
+        ranks = []
+        for r in range(n * m):
+            rec = json.loads(Path(f"{out}.rank{r}.json").read_text())
+            planes = np.load(f"{out}.rank{r}.planes.npz")
+            if rec["launches"] != rec["expected_launches"]:
+                failures.append(f"mesh {shape} rank {r}: fedagg "
+                                f"{rec['launches']}, records imply "
+                                f"{rec['expected_launches']}")
+            ranks.append({"rank": r, "launches": rec["launches"],
+                          "expected_launches": rec["expected_launches"],
+                          "fedagg_shapes": rec["shapes"],
+                          "plane_share": max(
+                              tolerance_share(planes[l][:len(w)], w)
+                              for l, w in uns_planes.items())})
+        by_round = loss_shares(vals, uns_vals)
+        over = [r for r, (x, a) in enumerate(zip(
+            by_round, allowed["loss_by_round"])) if x > a]
+        if over or max(rk["plane_share"] for rk in ranks) > allowed["plane"]:
+            failures.append(f"mesh {shape}: loss shares {by_round}, plane "
+                            f"shares {[rk['plane_share'] for rk in ranks]}; "
+                            f"allowed {allowed}")
+        shapes = sorted({tuple(x) for rk in ranks
+                         for x in rk["fedagg_shapes"]})
+        runs[shape] = {
+            "ranks": n * m, "backend": backend,
+            "member_forward": "gather" if m > 1 else "replicated",
+            "process_seconds": secs, "loss_share_by_round": by_round,
+            "max_accuracy_gap": acc_gap, "per_rank": ranks,
+            "fedagg_shapes_max_abs_err": {
+                f"{C}x{D}": check_fedagg(torch, f_ops, f_ref, dev, C, D)[2]
+                for C, D in shapes}}
+    emit({"phase": "mesh", "argv": MESH_ARGS, "backend_probe": probes,
+          "one_rank_only": len(done) == 1,
+          "concurrent": "the probes and the one-rank mesh beside the "
+                        "unsharded runs, then the multi-rank meshes "
+                        "together: seconds overlap",
+          "unsharded": uns_rec, "nudge_response": nudge,
+          "allowed_shares": allowed, "runs": runs,
+          "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL,
+                        "nudge_factor": MESH_NUDGE_FACTOR}})
+    if failures or not nudge["host_equal"]:
+        raise AssertionError(f"mesh: {failures}; nudge {nudge}")
+    return uns_rec["launches"], {shape: [rk["launches"]
+                                         for rk in run["per_rank"]]
+                                 for shape, run in runs.items()}
 
 
 def main():
@@ -2002,22 +2598,27 @@ def main():
           "oort_chosen": bruns["cuda"]["oort_chosen"], "baselines": bpar})
     del bruns
 
-    # 13. the examples as processes on the card ---------------------------
-    ex_runs = {}
-    for name in ("torch_quickstart", "torch_fedrac_sim"):
+    # 13. the examples as processes on the card, side by side -------------
+    def run_example(name):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable,
                                str(ROOT / "examples" / f"{name}.py")],
                               capture_output=True, text=True, timeout=600,
                               env=env, cwd=ROOT)
-        ex_runs[name] = {"seconds": time.perf_counter() - t0,
-                         "exit_code": proc.returncode,
-                         "last_lines": proc.stdout.strip().splitlines()[-3:]}
         if proc.returncode != 0:
             raise AssertionError(f"{name} exited {proc.returncode}: "
                                  f"{proc.stderr[-2000:]}")
+        return name, {"seconds": time.perf_counter() - t0,
+                      "exit_code": proc.returncode,
+                      "last_lines": proc.stdout.strip().splitlines()[-3:]}
+
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        ex_runs = dict(pool.map(run_example,
+                                ("torch_quickstart", "torch_fedrac_sim")))
     emit({"phase": "examples", "device": "cuda (the examples' default)",
-          "runs": ex_runs})
+          "concurrent": "the two processes share the card: seconds "
+                        "overlap", "runs": ex_runs})
 
     # 14. Fed-RAC on the MoE family, granite-moe-1b-a400m width ------------
     import numpy as np
@@ -2336,6 +2937,13 @@ def main():
           "peak_mem_bytes": serve_peak, "launches": serve_launches,
           "watch": watch, "demo": demo})
 
+    # 18-20. LM pretraining, the LM example, the mesh path --------------
+    train_launches = phase_train(torch, dev, env, zero_counts,
+                                 read_counts)
+    phase_lm_example(env)
+    uns_launches, mesh_launches = phase_mesh(torch, dev, env, n_test,
+                                             zero_counts)
+
     # kernels line, card line, last line -----------------------------------
     D0 = lm_shapes[0][1]
     fed = fed_timed[(C0, D0)]
@@ -2352,6 +2960,10 @@ def main():
         by_path[k]["moe_main"] = moe_launches[k]
         by_path[k]["families"] = fam_launches[k]
         by_path[k]["serve"] = serve_launches[k]
+        by_path[k]["train"] = train_launches[k]
+    by_path["fedagg"]["mesh_unsharded"] = uns_launches
+    for shape, per_rank in mesh_launches.items():
+        by_path["fedagg"][f"mesh_{shape}_per_rank"] = per_rank
     emit({"kernels": [
         {"name": "fedagg", "route": "cuda",
          "source": "src/repro_torch/kernels/fedagg/csrc/fedagg.cu",

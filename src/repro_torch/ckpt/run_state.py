@@ -63,6 +63,9 @@ class RunCheckpointer:
     manager: CheckpointManager
     every: int = 1
     resume: bool = False
+    # False: read checkpoints, never write them (every rank of a mesh run
+    # but rank 0, which writes for all)
+    writer: bool = True
 
     def due(self, r: int) -> bool:
         """Write a checkpoint at boundary ``r``?  (r counts completed
@@ -70,7 +73,10 @@ class RunCheckpointer:
         boundary is r == every.)"""
         return r > 0 and self.every > 0 and r % self.every == 0
 
-    def save(self, r: int, kind: str, meta: dict, arrays: dict) -> str:
+    def save(self, r: int, kind: str, meta: dict, arrays: dict):
+        """Write step ``r``; returns its path (None for a reader)."""
+        if not self.writer:
+            return None
         meta = dict(meta)
         meta["run_state"] = header(kind)
         return self.manager.save(r, meta, arrays)
@@ -90,6 +96,7 @@ class RunCheckpointer:
 
 
 def make_checkpointer(ckpt_dir: str, *, every: int = 1, keep: int = 3,
-                      resume: bool = False) -> RunCheckpointer:
+                      resume: bool = False,
+                      writer: bool = True) -> RunCheckpointer:
     return RunCheckpointer(CheckpointManager(ckpt_dir, keep=keep),
-                           every=every, resume=resume)
+                           every=every, resume=resume, writer=writer)

@@ -1,17 +1,28 @@
-"""FedAvg aggregation of client-stacked weights (§III-B), single device.
+"""FedAvg aggregation of client-stacked weights (§III-B).
 
 ``aggregate`` is the pytree form the one-round path uses; the ``*_plane``
 forms work on the dispatch path's flat ``(C, D)`` parameter plane, where the
 contraction is the fedagg kernel on a CUDA tensor and its plain version on a
 CPU tensor.  Every op has a zero-total guard: a round in which nobody
 contributes leaves the parameters as they were, never NaN.
+
+The ``*_sharded`` forms run on a ``launch.mesh`` mesh, one rank per
+process: every rank passes the same global inputs, pads the member rows
+(zero weights) and the columns to what the mesh divides, contracts its own
+(C/n, D/m) block (the fedagg kernel on a CUDA block) and one
+``all_reduce`` over the ``data`` sub-group finishes the §III-B upload.
+The ``model`` axis needs no reduction; its column blocks are gathered
+into the global result every rank returns.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.plane import pad_member_rows
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels.fedagg import ops as fedagg_ops
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import axis_size
 
 
 def aggregate(params_stack, weights):
@@ -61,6 +72,87 @@ def merge_buffered_plane(partial_plane, bank_plane, bank_weights):
     """Fold banked rows (weights already normalized by the live + buffered
     total) into a partial plane sum: one contraction."""
     return partial_plane + aggregate_plane(bank_plane, bank_weights)
+
+
+# ------------------------------------------------------- sharded flat plane
+def _plane_rows_for_mesh(mesh, C: int, axis: str) -> int:
+    """Smallest row count >= C divisible by the mesh ``axis`` size."""
+    n = axis_size(mesh, axis)
+    return -(-C // n) * n
+
+
+def aggregate_sharded(mesh, params_stack, weights, axis: str = "data"):
+    """Pytree FedAvg with the clients split along ``axis``: each rank
+    contracts its rows (zero-weight padding rows up to a multiple of the
+    axis) and one ``all_reduce`` per leaf sums the partial results, which
+    every rank returns."""
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    C = w.shape[0]
+    rows = _plane_rows_for_mesh(mesh, C, axis)
+
+    def pad(x):
+        if rows == C:
+            return x
+        return torch.cat([x, x.new_zeros((rows - C,) + tuple(x.shape[1:]))])
+
+    w = torch.cat([w, w.new_zeros(rows - C)])
+    local = aggregate(tree_map(lambda x: sharding.local_block(
+        mesh, pad(x), {axis: 0}), params_stack),
+        sharding.local_block(mesh, w, {axis: 0}))
+    return tree_map(lambda x: sharding.all_reduce(mesh, x, axis), local)
+
+
+def _block_of(mesh, plane, weights, axis, model_axis):
+    """Pad a global (C, D) plane and its (C,) weights to the mesh and take
+    this rank's (C/n, D/m) block; returns (plane block, weight rows, D)."""
+    w = torch.as_tensor(weights, dtype=torch.float32, device=plane.device)
+    plane, w = pad_member_rows(plane, w, _plane_rows_for_mesh(
+        mesh, plane.shape[0], axis))
+    D = plane.shape[1]
+    m = axis_size(mesh, model_axis) if model_axis else 1
+    if D % m:
+        # zero columns contract to zero columns, sliced back off below
+        plane = torch.cat([plane, plane.new_zeros(plane.shape[0], -D % m)],
+                          dim=1)
+    spec = {axis: 0, **({model_axis: 1} if model_axis else {})}
+    return (sharding.local_block(mesh, plane, spec),
+            sharding.local_block(mesh, w, {axis: 0}), D)
+
+
+def aggregate_plane_sharded(mesh, plane, weights, *, axis: str = "data",
+                            model_axis: str | None = None):
+    """plane: global (C, D) fp32; weights: (C,) raw or normalized -> the
+    global (D,) sum_i w_i p_i on every rank.  Each rank contracts its
+    (rows x columns) block, one ``all_reduce`` over ``axis`` sums the rows,
+    and the column blocks are gathered along ``model_axis``."""
+    blk, w, D = _block_of(mesh, plane, weights, axis, model_axis)
+    out = sharding.all_reduce(mesh, aggregate_plane(blk.contiguous(), w),
+                              axis)
+    if model_axis:
+        out = sharding.all_gather(mesh, out, model_axis, 0)
+    return out[:D]
+
+
+def fedavg_delta_plane_sharded(mesh, global_plane, plane, weights, *,
+                               axis: str = "data",
+                               model_axis: str | None = None):
+    """Sharded server update as an aggregated delta on the plane.  Zero
+    total weight gives a zero delta."""
+    w = torch.as_tensor(weights, dtype=torch.float32, device=plane.device)
+    agg = aggregate_plane_sharded(mesh, plane, w, axis=axis,
+                                  model_axis=model_axis)
+    return torch.where(w.sum() > 0.0, agg - global_plane,
+                       torch.zeros_like(global_plane))
+
+
+def merge_buffered_plane_sharded(mesh, partial_plane, bank_plane,
+                                 bank_weights, *, axis: str = "data",
+                                 model_axis: str | None = None):
+    """Sharded ``merge_buffered_plane``: the bank rows split like member
+    rows, and their contraction joins the partial sum through the same
+    block contraction and ``all_reduce``."""
+    return partial_plane + aggregate_plane_sharded(
+        mesh, bank_plane, bank_weights, axis=axis, model_axis=model_axis)
 
 
 # ------------------------------------------------------------ buffered async

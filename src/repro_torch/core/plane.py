@@ -69,16 +69,44 @@ class PlaneSpec:
         return tree_unflatten(self.template, leaves)
 
 
-def make_plane_spec(params_template) -> PlaneSpec:
+def make_plane_spec(params_template, *, model_size: int = 1) -> PlaneSpec:
+    """``model_size`` > 1 column-shards the plane over a mesh ``model``
+    axis: D is padded to a multiple of ``model_size × PLANE_ALIGN`` so every
+    rank's column slice is itself ``PLANE_ALIGN``-aligned, as the fedagg
+    kernel wants it."""
     leaves = tree_leaves(params_template)
     shapes = tuple(tuple(x.shape) for x in leaves)
     d = sum(math.prod(s) for s in shapes)
-    d_pad = -(-d // PLANE_ALIGN) * PLANE_ALIGN
+    align = PLANE_ALIGN * max(1, int(model_size))
+    d_pad = -(-d // align) * align
     return PlaneSpec(d=d, d_pad=d_pad,
                      template=tree_unflatten(params_template,
                                              [None] * len(shapes)),
                      shapes=shapes,
                      dtypes=tuple(x.dtype for x in leaves))
+
+
+def plane_specs(data_axis: str = "data", model_axis: str | None = None):
+    """How every plane-shaped buffer of the dispatch path splits over the
+    (data, model) mesh, as ``launch.sharding`` specs ({mesh axis: tensor
+    dim}; an axis not named holds the whole buffer).  Member rows (shard
+    packs, step masks, weights, bank rows) split along ``data_axis``;
+    plane COLUMNS split along ``model_axis`` when given: the global (D,)
+    plane, the (capacity, D) member and bank planes and the (R, D) teacher
+    and history stacks.  Aggregation then contracts each rank's (member
+    rows × column slice) block and sums over ``data`` only: columns never
+    need a reduction.  ``model_axis=None`` is the 1D member-sharded layout
+    (the plane whole on every rank)."""
+    cols = {model_axis: 0} if model_axis else {}
+    return {
+        "plane": cols,                                   # (D,)
+        "members": {data_axis: 0,                        # (capacity, D)
+                    **({model_axis: 1} if model_axis else {})},
+        "stack": {model_axis: 1} if model_axis else {},  # (R, D)
+        "rows": {data_axis: 0},                          # (capacity,)
+        "masks": {data_axis: 0},                         # (capacity, S)
+        "losses": {data_axis: 1},                        # (R, capacity)
+    }
 
 
 def pad_member_rows(plane: torch.Tensor, weights: torch.Tensor, rows: int):

@@ -29,7 +29,15 @@ stack of per-round teacher planes (the simulator's path).  ``self.obs``
 traces the block and pack spans, as in the JAX package.
 
 Everything runs on ``device``: ``cuda`` unless the caller asks for ``cpu``.
-Not ported yet: meshes and tensor parallelism (ROADMAP item 11).
+
+With ``mesh=`` (a ``launch.mesh`` mesh, one rank per process, every rank
+running the same engine) the dispatch blocks shard the member axis along
+``data``: each rank trains its member rows, contracts them with the fedagg
+kernel and one ``all_reduce`` a round finishes the FedAvg.  A ``model``
+axis of more than one rank also splits the plane, bank and teacher stacks
+by columns inside the block, gathering the columns each round for the
+member forward (JAX's ``tp_forward=False`` path).  The tensor-parallel
+member forward (``tp_forward=True`` on a 2D mesh) is ROADMAP item 11b.
 """
 from __future__ import annotations
 
@@ -45,12 +53,14 @@ from torch.func import vmap
 from repro_torch.core import aggregation, assignment as asg, clustering
 from repro_torch.core import compaction, cost_model, rounds as rnd
 from repro_torch.core.client import local_update, make_cluster_update
-from repro_torch.core.plane import make_plane_spec
+from repro_torch.core.plane import make_plane_spec, plane_specs
 from repro_torch.core.resources import (LAMBDA_PAPER, Fleet, Participant,
                                         resource_matrix)
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data import device_sampler
 from repro_torch.data.sampler import class_balanced_batches, sample_batches
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import axis_size
 from repro_torch.obs import NULL_OBS
 from repro_torch.obs.trace import synchronize
 
@@ -108,6 +118,10 @@ class FLConfig:
     # caller's input buffers and returns them, as the JAX package donates
     # them: the caller must not read the input expecting the old values
     donate_plane: bool = True
+    # on a 2D (data x model) mesh, run the member forward tensor-parallel
+    # over the model axis (ROADMAP item 11b, not ported: a 2D mesh refuses
+    # it); False gathers the plane's columns for a replicated forward
+    tp_forward: bool = True
     consts: rnd.ConvergenceConstants = field(
         default_factory=rnd.ConvergenceConstants)
 
@@ -181,14 +195,29 @@ class _Program:
         return out
 
 
+def check_mesh_config(cfg: FLConfig, mesh, model_axis: str = "model"
+                      ) -> None:
+    """The mesh contract: a mesh shards the dispatch path, so it needs
+    ``rounds_per_dispatch > 1``; a 2D mesh's tensor-parallel forward is not
+    ported."""
+    if cfg.rounds_per_dispatch == 1:
+        raise ValueError(
+            "a mesh shards the device-resident dispatch path — set "
+            "rounds_per_dispatch>1 (the legacy one-round path would "
+            "silently ignore it)")
+    if axis_size(mesh, model_axis) > 1 and cfg.tp_forward:
+        raise NotImplementedError(
+            "the tensor-parallel member forward on a 2D mesh "
+            "(tp_forward=True) is not ported yet: it waits for ROADMAP "
+            "item 11b; tp_forward=False gathers the plane's columns for a "
+            "replicated forward")
+
+
 class FedRAC:
     def __init__(self, parts: "list[Participant] | Fleet",
                  client_data: list[dict], family: FLModelFamily,
-                 cfg: FLConfig, classes: int, *, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes and tensor parallelism are not ported yet "
-                "(ROADMAP item 11); the port runs on one device")
+                 cfg: FLConfig, classes: int, *, device=None, mesh=None,
+                 mesh_axis: str = "data", mesh_model_axis: str = "model"):
         if cfg.aggregation not in ("sync", "buffered"):
             raise ValueError(f"unknown aggregation {cfg.aggregation!r}")
         if (cfg.rounds_per_dispatch > 1 and not cfg.vmap_clusters
@@ -198,6 +227,19 @@ class FedRAC:
                 "loop cannot run as a dispatch block (set "
                 "allow_loop_dispatch=True to route a loop-configured engine "
                 "through the dispatch path anyway)")
+        # a mesh: each rank holds the global plane, bank and stacks between
+        # blocks, and a block works on the rank's member rows (and, with a
+        # model axis of more than one rank, its column slice), one
+        # all_reduce over the data axis a round
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self._mesh_n = self._mesh_m = 1
+        if mesh is not None:
+            check_mesh_config(cfg, mesh, mesh_model_axis)
+            self._mesh_n = axis_size(mesh, mesh_axis)
+            self._mesh_m = axis_size(mesh, mesh_model_axis)
+        self.model_axis = mesh_model_axis if self._mesh_m > 1 else None
+        self._pspecs = plane_specs(mesh_axis, self.model_axis)
         self.device = resolve_device(device)
         if isinstance(parts, Fleet):
             self.fleet = parts
@@ -316,13 +358,20 @@ class FedRAC:
 
     def _capacity(self, C: int) -> int:
         """Bucket a live member count to its padded capacity: next power of
-        two capped at pad_max, then multiples of pad_max."""
+        two capped at pad_max, then multiples of pad_max.  On a mesh the
+        capacity is also rounded up to a multiple of the data-axis size, so
+        every rank holds as many member rows; the extra rows are zero-weight
+        padding like the buckets'."""
         cfg = self.cfg
-        if not cfg.pad_clusters or C <= 0:
-            return C
-        if C >= cfg.pad_max:
-            return -(-C // cfg.pad_max) * cfg.pad_max
-        return min(1 << (C - 1).bit_length(), cfg.pad_max)
+        cap = C
+        if cfg.pad_clusters and C > 0:
+            if C >= cfg.pad_max:
+                cap = -(-C // cfg.pad_max) * cfg.pad_max
+            else:
+                cap = min(1 << (C - 1).bit_length(), cfg.pad_max)
+        if self._mesh_n > 1 and cap > 0:
+            cap = -(-cap // self._mesh_n) * self._mesh_n
+        return cap
 
     def _stacked_batches(self, members: list[int], rng_round: int,
                          level: int, capacity: int | None = None):
@@ -354,11 +403,14 @@ class FedRAC:
 
     def plane_spec(self, level: int):
         """Flat-plane recipe of one level (cached; built from a template
-        draw, whose values are not used)."""
+        draw, whose values are not used).  On a 2D mesh D pads to a
+        multiple of ``model_size × PLANE_ALIGN``, so each rank's column
+        slice stays aligned for the fedagg kernel."""
         if level not in self._plane_specs:
             template = self.family.init(torch.Generator().manual_seed(0),
                                         level)
-            self._plane_specs[level] = make_plane_spec(template)
+            self._plane_specs[level] = make_plane_spec(
+                template, model_size=self._mesh_m)
         return self._plane_specs[level]
 
     def plane_of(self, level: int, params) -> torch.Tensor:
@@ -370,7 +422,9 @@ class FedRAC:
         return self.plane_spec(level).to_params(plane)
 
     # The JAX package commits planes, stacks and member rows to their mesh
-    # shardings through these four; on one device each is a move to it.
+    # shardings through these four.  The port's engine keeps the global
+    # buffer on every rank between blocks (a block takes its rank's block
+    # of each by ``plane_specs``), so each is a move to the device.
     def place_plane(self, x) -> torch.Tensor:
         """A (D,) plane on the engine's device."""
         return x.to(self.device)
@@ -512,9 +566,10 @@ class FedRAC:
         Procedure-2 migration of one participant moves one row, not the
         whole (capacity, N_pad, ...) stack.  Returns the new shards tree and
         the bytes copied, or None when a full build is better (no base
-        pack, more than half the rows new)."""
+        pack, more than half the rows new, or a mesh: a rank holds only its
+        rows of the base)."""
         prev = self._pack_prev.get((level, capacity, balanced))
-        if prev is None:
+        if prev is None or self.mesh is not None:
             return None
         prev_members, prev_shards = prev
         pos = {pid: i for i, pid in enumerate(prev_members)}
@@ -561,7 +616,10 @@ class FedRAC:
         and, for balanced levels, the class tables the draws need.  N_pad
         and the table width are fleet-wide powers of two, so shapes do not
         change with membership.  Under churn the shards come from the
-        previous pack of the same signature (``_delta_shards``)."""
+        previous pack of the same signature (``_delta_shards``).  On a
+        mesh the device holds only this rank's member rows; the lengths and
+        class tables stay global, since every rank draws for every slot and
+        keeps its own (``_local_rows``)."""
         key = (level, tuple(members), capacity, balanced)
         if key in self._shard_packs:
             pack = self._shard_packs.pop(key)      # LRU: refresh on hit
@@ -578,8 +636,9 @@ class FedRAC:
         if delta is not None:
             packed, nbytes = delta
         else:
-            packed = tree_map(lambda *xs: torch.as_tensor(
-                _padded_rows(xs, capacity, N)).to(self.device), *shards)
+            packed = tree_map(lambda *xs: torch.as_tensor(np.array(
+                self._local_rows(_padded_rows(xs, capacity, N)))
+            ).to(self.device), *shards)
             nbytes = sum(x.nbytes for x in tree_leaves(packed))
         n = np.zeros(capacity, np.int64)
         n[:len(members)] = [_shard_len(s) for s in shards]
@@ -595,8 +654,9 @@ class FedRAC:
         if len(self._shard_packs) >= 16:               # bound device memory
             self._shard_packs.pop(next(iter(self._shard_packs)))
         self._shard_packs[key] = pack
-        self._pack_prev[(level, capacity, balanced)] = (tuple(members),
-                                                        packed)
+        if self.mesh is None:
+            self._pack_prev[(level, capacity, balanced)] = (tuple(members),
+                                                            packed)
         if self.obs.on:
             # the shards are the pack's only device copy: lengths and class
             # tables stay on the host, where the draws are made
@@ -609,6 +669,13 @@ class FedRAC:
                 "pack_h2d", t0, time.perf_counter_ns() - t0, cat="fl",
                 level=level, bytes=nbytes, delta=delta is not None)
         return pack
+
+    def _local_rows(self, x):
+        """This rank's member rows of a global (capacity, ...) array (the
+        whole array off a mesh)."""
+        if self.mesh is None:
+            return x
+        return sharding.local_block(self.mesh, x, self._pspecs["rows"])
 
     def _draw_indices(self, pack, r: int, balanced: bool) -> np.ndarray:
         """(capacity, steps, batch) sample indices of round ``r`` for every
@@ -640,7 +707,19 @@ class FedRAC:
         contraction, then re-banks this round's member rows at
         ``bank_gain``.  ``t_per_round`` programs take an (R, D_master)
         stack of teacher planes, round j's teacher being its row j, instead
-        of one fixed teacher."""
+        of one fixed teacher.
+
+        On a mesh every input arrives global and each rank works on its
+        block of it (``plane_specs``): its member rows of the masks,
+        weights, indices and bank (the shard pack holds only those rows),
+        and, on a 2D mesh, its column slice of the plane, bank and teacher
+        stack.  Each round gathers the plane's (and the round teacher's)
+        columns along ``model`` for a replicated member forward, keeps its
+        column slice of the updated member rows, contracts its (rows ×
+        columns) block with the fedagg kernel and sums it over ``data``
+        with one ``all_reduce``; the round's weight total comes from the
+        global weight vectors, so it is the unsharded program's.  The
+        block's outputs are gathered back to global tensors at its end."""
         cfg = self.cfg
         key = ("dispatch", level, use_kd, capacity, R, balanced, banked,
                want_history, t_per_round, cfg.lr, cfg.kd_T, cfg.kd_alpha,
@@ -651,51 +730,93 @@ class FedRAC:
         kw = dict(kd_T=cfg.kd_T, kd_alpha=cfg.kd_alpha) if use_kd else {}
         update = make_cluster_update(loss_fn, cfg.lr, **kw)
         spec = self.plane_spec(level)
+        mesh, axis, maxis, sp = (self.mesh, self.mesh_axis, self.model_axis,
+                                 self._pspecs)
 
-        def one_round(g, bank_p, bank_w, idx, shards, step_masks, weights,
-                      teacher):
+        def local(x, split):
+            """This rank's block of a global block input."""
+            if mesh is None:
+                return x
+            return sharding.local_block(mesh, x, split)
+
+        def gathered(x, split):
+            """The global tensor of a block output."""
+            if mesh is None:
+                return x
+            return sharding.gather_block(mesh, x, split)
+
+        def gather_cols(plane_loc):
+            """This rank's column slice of a plane -> the whole plane."""
+            if maxis is None:
+                return plane_loc
+            return sharding.all_gather(mesh, plane_loc, maxis, 0)
+
+        def local_cols(member_plane):
+            """(C, D_pad) member rows -> this rank's (C, D_pad/m) slice."""
+            if maxis is None:
+                return member_plane
+            return sharding.local_block(mesh, member_plane,
+                                        {maxis: 1}).contiguous()
+
+        def one_round(g, bank_p, bank_w, total, idx, shards, step_masks,
+                      weights, teacher):
             C = step_masks.shape[0]
             rows = torch.arange(C, device=g.device)[:, None, None]
             batches = vmap(self._batch_from_gathered)(
                 tree_map(lambda v: v[rows, idx], shards))
-            params = spec.to_params(g)
+            params = spec.to_params(gather_cols(g))
             p_stack = tree_map(lambda x: x.expand(C, *x.shape), params)
             teachers = (self._teacher_logits(teacher, batches)
                         if use_kd else None)
             new_stack, losses = update(p_stack, batches, step_masks,
                                        teachers)
-            new_plane = spec.to_plane(new_stack)            # (C, D_pad)
-            total = weights.sum()
-            if banked:
-                total = total + bank_w.sum()
+            new_plane = local_cols(spec.to_plane(new_stack))  # (C, D_pad/m)
             denom = torch.where(total > 0.0, total, torch.ones_like(total))
             agg = aggregation.aggregate_plane(new_plane, weights / denom)
             if banked:
                 agg = aggregation.merge_buffered_plane(agg, bank_p,
                                                        bank_w / denom)
+            if mesh is not None:
+                agg = sharding.all_reduce(mesh, agg, axis)
             # the member plane lives on only as the next round's bank: a
             # block without one frees it here, not a round later
             return (torch.where(total > 0.0, agg, g),
                     new_plane if banked else None, losses)
 
         def block_fn(plane, shards, idx, step_masks, weights, teacher, bank):
-            g = plane
-            bank_p, bank_w, bank_gain = bank if banked else (None,) * 3
+            w_total = weights.sum()
+            g = local(plane, sp["plane"])
+            idx = local(idx, {axis: 1})           # (R, capacity, steps, B)
+            step_masks = local(step_masks, sp["masks"])
+            weights = local(weights, sp["rows"])
+            if t_per_round:
+                teacher = local(teacher, sp["stack"])
+            bank_p = bank_w = bank_gain = None
+            if banked:
+                bank_p, bank_w, bank_gain = bank
+                totals = (w_total + bank_w.sum(), w_total + bank_gain.sum())
+                bank_p = local(bank_p, sp["members"]).contiguous()
+                bank_w = local(bank_w, sp["rows"])
+                bank_gain = local(bank_gain, sp["rows"])
             losses, history = [], []
             for i in range(R):
-                t = (self.params_of(0, teacher[i]) if t_per_round
-                     else teacher)
-                g, rows, l = one_round(g, bank_p, bank_w, idx[i], shards,
-                                       step_masks, weights, t)
+                t = (self.params_of(0, gather_cols(teacher[i]))
+                     if t_per_round else teacher)
+                total = totals[min(i, 1)] if banked else w_total
+                g, rows, l = one_round(g, bank_p, bank_w, total, idx[i],
+                                       shards, step_masks, weights, t)
                 if banked:
                     bank_p, bank_w = rows, bank_gain
                 del rows
                 losses.append(l)
                 if want_history:
                     history.append(g)
-            return (g, (bank_p, bank_w) if banked else None,
-                    torch.stack(losses),
-                    torch.stack(history) if want_history else None)
+            return (gathered(g, sp["plane"]),
+                    (gathered(bank_p, sp["members"]), bank[2]) if banked
+                    else None,
+                    gathered(torch.stack(losses), sp["losses"]),
+                    gathered(torch.stack(history), sp["stack"])
+                    if want_history else None)
 
         self._programs[key] = self._program(
             block_fn, f"dispatch_L{level}_cap{capacity}_R{R}"
@@ -788,6 +909,9 @@ class FedRAC:
             # per-round member losses are the block's host-bound output
             reg.counter("fl/d2h_bytes").inc(
                 losses.numel() * losses.element_size())
+            if self.mesh is not None:
+                # one all_reduce over the data axis per round
+                reg.counter("fl/psum_count").inc(n_rounds)
         return DispatchOut(plane=new_plane, losses=losses, bank=bank_out,
                            history=history)
 

@@ -58,15 +58,36 @@ def train_test_split(ds: Dataset, test_frac: float = 0.2, seed: int = 0):
 
 def make_lm_corpus(vocab: int, length: int, seed: int = 0,
                    n_states: int = 8) -> np.ndarray:
-    """Markov chain over vocab with low-entropy per-state emissions."""
+    """Markov chain over vocab with low-entropy per-state emissions.
+
+    The JAX package draws token i by ``rng.choice(vocab, p=emit[s])`` and
+    the next state by ``rng.choice(n_states, p=trans[s])``, alternately.
+    Each such call takes one ``rng.random()`` and searches the row's
+    normalized cumulative sum; here the 2 * length uniforms are drawn at
+    once and the searches batched per state, which gives the same tokens
+    without a search of a vocabulary-wide row per token."""
     rng = np.random.default_rng(seed)
     trans = rng.dirichlet(np.ones(n_states) * 0.3, size=n_states)
     emit = rng.dirichlet(np.ones(vocab) * 0.05, size=n_states)
-    toks = np.empty(length, np.int32)
+
+    def cdf(p):
+        c = p.cumsum()
+        c /= c[-1]
+        return c
+
+    u = rng.random(2 * length)
+    u_tok, u_state = u[0::2], u[1::2]
+    nxt = np.stack([cdf(trans[s]).searchsorted(u_state, side="right")
+                    for s in range(n_states)]).tolist()
+    states = np.empty(length, np.int64)
     s = 0
     for i in range(length):
-        toks[i] = rng.choice(vocab, p=emit[s])
-        s = rng.choice(n_states, p=trans[s])
+        states[i] = s
+        s = nxt[s][i]
+    toks = np.empty(length, np.int32)
+    for s in range(n_states):
+        at = np.flatnonzero(states == s)
+        toks[at] = cdf(emit[s]).searchsorted(u_tok[at], side="right")
     return toks
 
 

@@ -17,10 +17,20 @@ import torch
 from repro_torch.core.tree import tree_map
 
 
+def _leaf_from_numpy(x, device) -> torch.Tensor:
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 (JAX's bf16 arrays), read by its 16-bit words
+        # so this module need not import ml_dtypes
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(x, device=device)
+
+
 def params_from_numpy(tree, device="cpu"):
-    """A pytree of numpy arrays -> the port's params on ``device``."""
-    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device),
-                    tree)
+    """A pytree of numpy arrays (fp32, bf16 or any numpy dtype torch
+    takes) -> the port's params on ``device``."""
+    return tree_map(lambda x: _leaf_from_numpy(x, device), tree)
 
 
 def params_to_numpy(tree):

@@ -35,20 +35,38 @@ SIGINT flush telemetry and write a final checkpoint before exiting
 ``128+signum``, and the fault-injection knobs (``--kill-at-round``,
 ``--kill-mid-block``, ``--corrupt-ckpt``) drive the kill-and-resume tests.
 
+``--mesh-shape D[xM]`` shards the dispatch blocks over a mesh of D·M ranks,
+one process each (``core.server``): run alone, the launcher starts the
+ranks itself and rendezvouses them through a file; under
+``torch.distributed.run`` it uses the world it is given.  Rank r runs on
+``cuda:(r % device_count)``, or the CPU with ``--device cpu``, over gloo
+on the CPU, nccl when every rank has a card of its own, else gloo (NCCL
+refuses two ranks on one card).  Rank 0 writes every output and prints; the
+other ranks are silent.  A 2D mesh needs ``--no-tp-forward``: the
+tensor-parallel member forward is ROADMAP item 11b.
+
+  PYTHONPATH=src python -m repro_torch.launch.sim_run --trace mixed \
+      --mar-policy buffer --rounds-per-dispatch 4 --mesh-shape 4x2 \
+      --no-tp-forward --device cpu
+
 The flags are the JAX launcher's, plus ``--device`` (``cuda`` by default;
 without a card it raises; on the fleet path it is where the setup's Lloyd
-loop runs).  What is not ported yet exits nonzero naming its ROADMAP item:
-``--mesh-shape`` and ``--tp-forward`` (item 11).
+loop runs).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import json
+import os
+import pickle
 import signal
+import sys
+import tempfile
 import zlib
 
 import numpy as np
+import torch
 
 from repro_torch.ckpt.run_state import make_checkpointer
 from repro_torch.core import server as srv
@@ -59,6 +77,7 @@ from repro_torch.core.tree import tree_leaves
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import (SPECS, make_classification,
                                         train_test_split)
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import make_observability
 from repro_torch.sim import (SCENARIOS, FleetSim, FleetSimConfig,
                              HeterogeneitySim, SimConfig, make_fleet_trace,
@@ -66,20 +85,6 @@ from repro_torch.sim import (SCENARIOS, FleetSim, FleetSimConfig,
 from repro_torch.sim.faults import (CORRUPTION_MODES, FaultInjector,
                                     FaultPlan, GracefulShutdown,
                                     corrupt_checkpoint)
-
-# flag -> (the value it has when not given, what it waits for)
-_NOT_PORTED = {
-    "mesh_shape": (None, "meshes and tensor parallelism, ROADMAP item 11"),
-    "tp_forward": (None, "meshes and tensor parallelism, ROADMAP item 11"),
-}
-
-
-def _refuse_not_ported(args) -> None:
-    for name, (unset, item) in _NOT_PORTED.items():
-        if getattr(args, name) != unset:
-            flag = "--" + name.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported yet: it waits for {item}")
-
 
 def _trace_knobs(args) -> dict:
     """CLI rate knobs the chosen scenario accepts, only when explicitly set
@@ -97,7 +102,7 @@ def _trace_knobs(args) -> dict:
     return explicit
 
 
-def _crash_harness(args):
+def _crash_harness(args, writer: bool = True):
     """(RunCheckpointer | None, FaultInjector | None) from the crash-safety
     flags; ``--corrupt-ckpt`` damages the newest checkpoint *before* the
     resume read so the degrade-to-previous-valid path is exercised."""
@@ -113,13 +118,14 @@ def _crash_harness(args):
             raise SystemExit("--kill-mid-block needs --rounds-per-dispatch "
                              ">1 (mid-block faults live inside dispatch "
                              "blocks)")
-    if args.corrupt_ckpt:
+    if args.corrupt_ckpt and writer:
         path = corrupt_checkpoint(args.ckpt_dir, args.corrupt_ckpt)
         print(f"# corrupted newest checkpoint ({args.corrupt_ckpt}): {path}")
     ckpt = None
     if args.ckpt_dir:
         ckpt = make_checkpointer(args.ckpt_dir, every=args.ckpt_every,
-                                 keep=args.ckpt_keep, resume=args.resume)
+                                 keep=args.ckpt_keep, resume=args.resume,
+                                 writer=writer)
     faults = None
     if args.kill_at_round is not None or args.kill_mid_block is not None:
         faults = FaultInjector(FaultPlan(kill_at_round=args.kill_at_round,
@@ -187,7 +193,7 @@ def _graceful_exit(args, sim, obs, signum) -> None:
     raise SystemExit(128 + signum)
 
 
-def build(args):
+def build(args, mesh=None, device=None):
     ds = make_classification(args.dataset, args.samples, seed=args.seed)
     train, test = train_test_split(ds)
     idx = dirichlet_partition(train.y, args.participants,
@@ -207,9 +213,10 @@ def build(args):
                        aggregation=("buffered" if args.mar_policy == "buffer"
                                     else "sync"),
                        staleness_discount=args.staleness_discount,
-                       rounds_per_dispatch=args.rounds_per_dispatch)
+                       rounds_per_dispatch=args.rounds_per_dispatch,
+                       tp_forward=args.tp_forward)
     eng = srv.FedRAC(parts, client_data, fam, cfg, classes=classes,
-                     device=args.device).setup()
+                     device=device or args.device, mesh=mesh).setup()
     return eng, {"x": test.x, "y": test.y}
 
 
@@ -249,16 +256,24 @@ def run_fleet(args):
     return report
 
 
-def run(args):
-    _refuse_not_ported(args)
+def run(args, mesh=None, rank: int = 0, device=None):
+    """One simulation; on a mesh every rank runs it and rank 0 writes the
+    outputs."""
     if args.fleet_size:
         return run_fleet(args)
-    ckpt, faults = _crash_harness(args)
-    eng, testb = build(args)
+    ckpt, faults = _crash_harness(args, writer=rank == 0)
+    eng, testb = build(args, mesh=mesh, device=device)
     members = {l: len(v) for l, v in eng.assignment.members.items()}
     print(f"device={eng.device} k_optimal={eng.k_optimal} "
           f"compacted_to={eng.m} MAR(master)={eng.specs[0].mar:.2f}s "
           f"members={members}")
+    if eng.mesh is not None:
+        plane_txt = (f", plane columns sharded {eng._mesh_m}-way"
+                     if eng._mesh_m > 1 else "")
+        fwd_txt = ", replicated member forward" if eng._mesh_m > 1 else ""
+        backend = torch.distributed.get_backend()
+        print(f"mesh={mesh_lib.mesh_shape(eng.mesh)} (member axis sharded "
+              f"{eng._mesh_n}-way{plane_txt}{fwd_txt}) backend={backend}")
     trace = make_trace(args.trace, args.participants, args.rounds,
                        seed=args.seed, **_trace_knobs(args))
     obs = None
@@ -274,11 +289,15 @@ def run(args):
         try:
             report = sim.run(testb)
         except GracefulShutdown as e:
+            if rank:
+                raise SystemExit(128 + e.signum)
             _graceful_exit(args, sim, obs, e.signum)
     print(report.timeline())
     stats = eng.compile_stats()
     print(f"# round programs={len(stats)} builds={sum(stats.values())} "
           f"(padding {'on' if eng.cfg.pad_clusters else 'off'})")
+    if rank:
+        return report
     _flush_obs(args, obs)
     if args.report_out:
         doc = report.to_dict()
@@ -289,6 +308,73 @@ def run(args):
     if args.json:
         print(json.dumps(report.to_dict(), default=float))
     return report
+
+
+def _check_mesh_flags(args) -> tuple:
+    """(data, model) of ``--mesh-shape``, refused before any rank starts
+    when the engine would refuse it."""
+    n, m = mesh_lib.parse_sim_mesh_shape(args.mesh_shape)
+    if args.rounds_per_dispatch <= 1:
+        raise SystemExit("--mesh-shape shards the dispatch path: it needs "
+                         "--rounds-per-dispatch >1")
+    if m > 1 and args.tp_forward:
+        raise SystemExit("--tp-forward on a 2D mesh (the tensor-parallel "
+                         "member forward) is not ported yet: it waits for "
+                         "ROADMAP item 11b; --no-tp-forward gathers the "
+                         "plane's columns for a replicated forward")
+    return n, m
+
+
+def run_rank(args, rank: int, world: int, init_method: str,
+             report_path: str | None = None):
+    """One rank of a mesh run: join the world, build the mesh, run.  Rank
+    0 pickles its report to ``report_path`` for the launching process."""
+    torch.set_num_threads(1)
+    mesh_lib.init_world(rank, world, init_method,
+                        mesh_lib.default_backend(args.device, world))
+    device = None
+    if args.device == "cuda":
+        device = torch.device("cuda", rank % max(1, torch.cuda.device_count()))
+        torch.cuda.set_device(device)
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        mesh = mesh_lib.make_sim_mesh(args.mesh_shape,
+                                      device_type=args.device)
+        report = run(args, mesh=mesh, rank=rank, device=device)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    if rank == 0 and report_path:
+        report.obs = None
+        with open(report_path, "wb") as f:
+            pickle.dump(report, f)
+    return report
+
+
+def _spawned_rank(rank, args, world, init_method, report_path):
+    run_rank(args, rank, world, init_method, report_path)
+
+
+def run_mesh(args):
+    """``--mesh-shape``: in the world ``torch.distributed.run`` gave, or
+    in D·M ranks started here (one process each, a file rendezvous in a
+    fresh temporary directory).  Returns rank 0's report."""
+    n, m = _check_mesh_flags(args)
+    if "WORLD_SIZE" in os.environ:
+        return run_rank(args, int(os.environ["RANK"]),
+                        int(os.environ["WORLD_SIZE"]), "env://")
+    if args.device == "cuda":
+        srv.resolve_device("cuda")
+        from repro_torch.kernels import _build
+        _build.build()                 # once here, not once per rank
+    with tempfile.TemporaryDirectory(prefix="sim_mesh_") as d:
+        report_path = os.path.join(d, "report.pkl")
+        torch.multiprocessing.spawn(
+            _spawned_rank, args=(args, n * m, f"file://{d}/rendezvous",
+                                 report_path), nprocs=n * m)
+        with open(report_path, "rb") as f:
+            return pickle.load(f)
 
 
 def main(argv=None):
@@ -397,11 +483,23 @@ def main(argv=None):
                     help="run the vectorized fleet simulator on N "
                          "participants (no training; scheduling and "
                          "accounting only)")
-    # not ported yet: each exits nonzero naming its ROADMAP item
-    ap.add_argument("--mesh-shape", default=None, metavar="DATA[xMODEL]")
-    ap.add_argument("--tp-forward", default=None,
-                    action=argparse.BooleanOptionalAction)
+    ap.add_argument("--mesh-shape", default=None, metavar="DATA[xMODEL]",
+                    help="shard the dispatch path over a mesh of ranks, "
+                         "e.g. '8', '8x1' (member axis only) or '4x2' "
+                         "(members along data and plane/bank/teacher "
+                         "columns along model).  Requires "
+                         "--rounds-per-dispatch >1; a round's aggregation "
+                         "becomes a local (rows x columns) fedagg plus one "
+                         "all_reduce over data")
+    ap.add_argument("--tp-forward", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="on a 2D mesh, run the member forward tensor-"
+                         "parallel over the model axis (ROADMAP item 11b, "
+                         "not ported); --no-tp-forward gathers the plane's "
+                         "columns for a replicated forward")
     args = ap.parse_args(argv)
+    if args.mesh_shape and not args.fleet_size:
+        return run_mesh(args)
     return run(args)
 
 

@@ -7,13 +7,17 @@ Parameters of each position-in-superblock are stacked across superblocks
 JAX package, so the pytree and its flat plane are the same in both
 packages.  JAX runs the depth under ``lax.scan``; here a Python loop
 indexes the stacked leaves, and ``decode_step`` restacks each position's
-new cache.  ``remat=True`` raises ``NotImplementedError`` naming its
-ROADMAP item (10f).
+new cache.  ``remat=True`` recomputes each superblock's body in the
+backward pass (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of
+the scan body) under autograd; under ``torch.func``'s transforms, which
+take no saved-tensor hooks, it raises ``NotImplementedError`` naming the
+cause (ROADMAP C6) rather than dropping the recompute.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
@@ -33,10 +37,6 @@ def _check_ported(cfg: ModelConfig):
     for kind in cfg.block_pattern:
         if kind not in _MIXER_INIT:
             raise ValueError(kind)
-    if cfg.remat:
-        raise NotImplementedError(
-            "not ported yet: remat=True (recompute per superblock, "
-            "torch.utils.checkpoint) is ROADMAP item 10f")
 
 
 def _init_block(generator, cfg: ModelConfig, pos: int, dtype):
@@ -137,18 +137,44 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     B, S, _ = h.shape
     if positions is None:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for sb in range(cfg.n_superblocks):
+
+    def sb_body(h, sbp):
         aux_sb = torch.zeros((), dtype=torch.float32, device=h.device)
         for j in range(cfg.period):
-            p = tree_map(lambda x: x[sb], params["blocks"][f"p{j}"])
-            h, a = _apply_block(cfg, j, p, h, positions)
+            h, a = _apply_block(cfg, j, sbp[f"p{j}"], h, positions)
             aux_sb = aux_sb + a
+        return h, aux_sb
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for sb in range(cfg.n_superblocks):
+        sbp = {k: tree_map(lambda x: x[sb], v)
+               for k, v in params["blocks"].items()}
+        if cfg.remat:
+            h, aux_sb = _remat(sb_body, h, sbp)
+        else:
+            h, aux_sb = sb_body(h, sbp)
         aux = aux + aux_sb
     h = apply_norm(cfg, params["final_norm"], h)
     if return_hidden:
         return h, aux
     return _logits(cfg, params, h), aux
+
+
+def _remat(fn, h, sbp):
+    """``fn(h, sbp)`` with its activations recomputed in the backward pass
+    instead of kept.  ``torch.func``'s grad transforms refuse the
+    saved-tensor hooks this needs; that refusal is raised as
+    ``NotImplementedError`` with its cause."""
+    try:
+        return checkpoint(fn, h, sbp, use_reentrant=False)
+    except RuntimeError as e:
+        if "saved tensor hooks" not in str(e):
+            raise
+        raise NotImplementedError(
+            "remat=True recomputes each superblock through "
+            "torch.utils.checkpoint, and torch.func's grad transforms (the "
+            "FL engine's vmapped member step) take no saved-tensor hooks; "
+            "train with remat=False there (ROADMAP C6)") from e
 
 
 # ------------------------------------------------------------------ decode

@@ -99,8 +99,13 @@ def test_sim_run_cpu_json_and_observability(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh-shape", "4x2"], "item 11"), (["--no-tp-forward"], "item 11")])
+    (["--mesh-shape", "4x2", "--rounds-per-dispatch", "2"], "item 11b"),
+    (["--mesh-shape", "2x2", "--rounds-per-dispatch", "2", "--tp-forward"],
+     "item 11b")])
 def test_sim_run_refused_flags_name_their_item(flags, item):
+    """The mesh is ported (test_torch_mesh_fedrac.py); a 2D mesh's
+    tensor-parallel forward, the default as in JAX, is refused before any
+    rank starts."""
     with pytest.raises(SystemExit) as e:
         sim_run.main(_SMALL + ["--device", "cpu"] + flags)
     assert e.value.code != 0
