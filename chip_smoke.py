@@ -147,7 +147,26 @@ Phases, each printing one JSON line:
               each rank's final planes within the parity tolerance, each
               rank's fedagg launches equal to its records' count, and
               fedagg held against its plain version at every per-rank
-              (C/n, D/m) shape.
+              (C/n, D/m) shape.  Beside them run the worlds phase 21
+              reads: 1x2 and 2x2 with the tensor-parallel forward;
+  21. tp      the tensor-parallel member forward: (a) those CNN worlds
+              held as the mesh phase holds its own, and besides, each
+              rank's TP planes' whole-leaf copies equal across chunks, no
+              plane column gathered along ``model`` inside a block beyond
+              the block's outputs, fedagg on (C/n, d_loc) blocks; (b)
+              lm_main's federation on a 1x2 mesh of two rank processes
+              over gloo, flash on 8 local heads per rank, launches as the
+              code implies, the member losses against lm_main's within the
+              parity tolerance or 16 times a one-ulp nudge's move (the
+              nudged lm_main runs in process first); fedagg at the ranks'
+              shapes and flash at the local-head shape held against their
+              plain versions, flash timed; (c) the LM's gather path
+              (``tp_forward=False``) beside the TP forward on 1x2 at 7 of
+              lm_main's 14 participants (two gather ranks at full count
+              would each hold lm_main's 46.7 GB), each world's member
+              losses against the unsharded run at that count within the
+              parity tolerance; per-rank peak memory, seconds and
+              collective bytes per round for TP and for the gather path.
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no last line.  It exits nonzero at once
@@ -262,6 +281,19 @@ MESH_CHILD = "import sys, chip_smoke; chip_smoke.mesh_child(sys.argv[1:])"
 MESH_NUDGE_FACTOR = 16
 PROBE_CHILD = ("import sys, chip_smoke; "
                "chip_smoke.collective_probe_child(sys.argv[1], sys.argv[2])")
+# the mesh phase's rank worlds: name -> (mesh shape, tensor-parallel member
+# forward); the tp phase reads the tensor-parallel ones
+MESH_WORLDS = {"1": ("1", False), "2": ("2", False), "2x2": ("2x2", False),
+               "1x2-tp": ("1x2", True), "2x2-tp": ("2x2", True)}
+# lm_main's federation schedule; the tp phase runs it on a 1x2 mesh of two
+# rank processes (``tp_lm_child``), and at LM_CUT_PARTICIPANTS (capacities
+# 4 and 4 where lm_main's are 8 and 8) with the TP forward and with the
+# gather path, whose two ranks at the full count would not fit the card
+LM_CUT_PARTICIPANTS = 7
+LM_FL = dict(rounds=2, rounds_per_dispatch=2, steps_per_round=2,
+             local_batch=4, class_balanced=False, compact_to=2, lr=0.05,
+             seed=3)
+TP_LM_CHILD = "import sys, chip_smoke; chip_smoke.tp_lm_child(sys.argv[1:])"
 
 
 def emit(obj):
@@ -526,6 +558,39 @@ def lm_federation(n_part, vocab, corpus_tokens, seq, seed):
     parts = participants_from_matrix(V, n_data=[len(c["tokens"])
                                                 for c in cd])
     return parts, cd, {"tokens": lm_batches(corpus, 32, seq, 1, seed=99)[0]}
+
+
+def lm_main_engine(srv, torch, device, mesh=None, nudge=0.0,
+                   participants=LM_PARTICIPANTS, tp_forward=True):
+    """lm_main's federation at full OLMo-1B width (two of its 16 layers,
+    attention on the flash route), set up: (base config, FL config,
+    engine, test tokens, seconds to draw the corpus).  ``nudge`` scales
+    every initial parameter by (1 + nudge) in fp32, the dtype the engine
+    trains its planes in (a bf16 leaf would round the nudge away);
+    ``participants`` cuts the member count, ``tp_forward`` picks a 2D
+    mesh's member forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.families import lm_family
+    from repro_torch.core.tree import tree_map
+    lm_base = get_config("olmo-1b").replace(n_layers=2, attn_impl="pallas")
+    lm_cfg = srv.FLConfig(**LM_FL, tp_forward=tp_forward)
+    t0 = time.perf_counter()
+    lparts, lcd, ltest = lm_federation(participants, lm_base.vocab_size,
+                                       LM_CORPUS_TOKENS, LM_SEQ, 3)
+    corpus_s = time.perf_counter() - t0
+    _, TokenFedRAC = engines(srv, torch)
+
+    class Engine(TokenFedRAC):
+        def init_params(self, level):
+            p = super().init_params(level)
+            if not nudge:
+                return p
+            return tree_map(lambda x: x.to(torch.float32) * (1.0 + nudge), p)
+
+    lm = Engine(lparts, lcd, lm_family(lm_base, 0.5), lm_cfg,
+                classes=lm_base.padded_vocab, device=device,
+                mesh=mesh).setup()
+    return lm_base, lm_cfg, lm, ltest, corpus_s
 
 
 def profile_train(torch, eng, test, match):
@@ -1060,14 +1125,111 @@ def collective_probe_child(backend, out_path):
         Path(out_path).write_text(json.dumps(res))
 
 
-def launcher_sim_run(argv, shapes, nudge=0.0):
+def record_collectives():
+    """Wrap the port's collective functions in this process, the
+    plane-level ones of ``launch.sharding`` (``all_reduce``,
+    ``all_gather``) and the tensor-parallel forward's of ``models.tp``
+    (``_all_reduce``, ``_all_gather``), to record each call that reaches a
+    group of more than one rank as (function, mesh axis, bytes): the
+    tensor's bytes for an all_reduce, the gathered tensor's for an
+    all_gather.  Returns the list the wrappers fill."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import axis_size
+    from repro_torch.models import tp
+    calls = []
+    s_reduce, s_gather = sharding.all_reduce, sharding.all_gather
+    t_reduce, t_gather = tp._all_reduce, tp._all_gather
+
+    def nbytes(x):
+        return x.numel() * x.element_size()
+
+    def all_reduce(mesh, x, axis):
+        if axis_size(mesh, axis) > 1:
+            calls.append(("sharding.all_reduce", axis, nbytes(x)))
+        return s_reduce(mesh, x, axis)
+
+    def all_gather(mesh, x, axis, dim):
+        n = axis_size(mesh, axis)
+        if n > 1:
+            calls.append(("sharding.all_gather", axis, n * nbytes(x)))
+        return s_gather(mesh, x, axis, dim)
+
+    def tp_all_reduce(x, op=None):
+        calls.append(("tp.all_reduce", tp.tp_ctx()[1], nbytes(x)))
+        return t_reduce(x, op)
+
+    def tp_all_gather(x, dim):
+        calls.append(("tp.all_gather", tp.tp_ctx()[1],
+                      tp.tp_size() * nbytes(x)))
+        return t_gather(x, dim)
+
+    sharding.all_reduce, sharding.all_gather = all_reduce, all_gather
+    tp._all_reduce, tp._all_gather = tp_all_reduce, tp_all_gather
+    return calls
+
+
+def collective_bytes(calls, rounds):
+    """{"function@axis": bytes per round} over recorded calls."""
+    out = {}
+    for fn, axis, n in calls:
+        out[f"{fn}@{axis}"] = out.get(f"{fn}@{axis}", 0) + n
+    return {k: v / max(rounds, 1) for k, v in sorted(out.items())}
+
+
+def probe_engine(base, calls):
+    """``base`` (a FedRAC class) that records, for each dispatch block,
+    the plane gathers it made along ``model`` (``launch.sharding``'s
+    all_gather in ``calls``) beside the outputs a block gathers at its end
+    (its plane, and its bank and history when it carries them); and that
+    checks, wherever it unravels a tensor-parallel plane, each whole
+    leaf's copies for equality across the chunks."""
+
+    class Probe(base):
+        def setup(self):
+            self.probe = {"blocks": [], "rounds": 0, "replica_checks": 0,
+                          "replica_mismatches": 0}
+            return super().setup()
+
+        def dispatch_rounds(self, level, members, plane, r0, n_rounds,
+                            **kw):
+            i = len(calls)
+            out = super().dispatch_rounds(level, members, plane, r0,
+                                          n_rounds, **kw)
+            self.probe["rounds"] += n_rounds
+            self.probe["blocks"].append({
+                "level": level, "rounds": n_rounds,
+                "outputs": (1 + (kw.get("bank") is not None)
+                            + bool(kw.get("want_history"))),
+                "plane_gathers": sum(
+                    1 for f, a, _ in calls[i:]
+                    if f == "sharding.all_gather" and a == "model")})
+            return out
+
+        def params_of(self, level, plane):
+            spec = self.plane_spec(level)
+            if self._tp and plane.dim() == 1:
+                x = plane.reshape(spec.msize, spec.d_loc)
+                self.probe["replica_checks"] += 1
+                self.probe["replica_mismatches"] += sum(
+                    1 for _, _, k, off, n in spec.recs if k is None
+                    and not bool((x[:, off:off + n]
+                                  == x[:1, off:off + n]).all()))
+            return super().params_of(level, plane)
+
+    return Probe
+
+
+def launcher_sim_run(argv, shapes, nudge=0.0, probe=None):
     """``sim_run.main(argv)`` with run-to-run deterministic cuDNN and TF32
     off, ``sim_classes``' engine and simulator in place of the launcher's,
     and the (rows, columns) of every plane the fedagg route is given
     (``aggregation.aggregate_plane``) added to ``shapes``; ``nudge``
-    scales every initial parameter by (1 + nudge).  Returns (report,
-    simulator, fedagg launches in ``sim.run``, the launches its records
-    imply)."""
+    scales every initial parameter by (1 + nudge).  With ``probe`` (a
+    dict; in a rank process, whose collectives it wraps for good) the
+    engine is ``probe_engine``'s and ``probe`` gets its record, the
+    collective bytes per round and each level's chunk length.  Returns
+    (report, simulator, fedagg launches in ``sim.run``, the launches its
+    records imply)."""
     import torch
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.allow_tf32 = False
@@ -1081,6 +1243,9 @@ def launcher_sim_run(argv, shapes, nudge=0.0):
     ShapeFedRAC, CountingSim = sim_classes(srv, sim_run.HeterogeneitySim)
     kernel = f_ops.weighted_aggregate
     aggregate_plane = aggregation.aggregate_plane
+    if probe is not None:
+        calls = record_collectives()
+        ShapeFedRAC = probe_engine(ShapeFedRAC, calls)
 
     class Engine(ShapeFedRAC):
         def init_params(self, level):
@@ -1110,6 +1275,12 @@ def launcher_sim_run(argv, shapes, nudge=0.0):
         srv.FedRAC, sim_run.HeterogeneitySim = saved
         aggregation.aggregate_plane = aggregate_plane
     sim = LauncherSim.last
+    if probe is not None:
+        fl = sim.fl
+        probe.update(fl.probe, tp=fl._tp,
+                     collectives=collective_bytes(calls, fl.probe["rounds"]),
+                     chunk={str(l): fl.plane_spec(l).d_pad // fl._mesh_m
+                            for l in sim.params})
     comp = int(sim.obs.registry.counter("agg/bank_compressions").value)
     return (report, sim, kernel.launches,
             expected_fedagg_launches(report.rows, sim.terminal, comp,
@@ -1118,18 +1289,30 @@ def launcher_sim_run(argv, shapes, nudge=0.0):
 
 def mesh_child(argv):
     """One rank of the mesh phase (its world in the environment): the
-    launcher through ``launcher_sim_run``; writes the rank's fedagg record
-    and final planes beside ``--report-out``."""
+    launcher through ``launcher_sim_run`` with its probe; writes the
+    rank's fedagg record, probe, peak memory and seconds, and final planes
+    (in the unsharded layout, whatever the run's), beside
+    ``--report-out``."""
     import numpy as np
-    shapes = set()
-    report, sim, launches, expected = launcher_sim_run(argv, shapes)
+    import torch
+    from repro_torch.core.plane import make_plane_spec
+    from repro_torch.kernels.distill import ops as d_ops
+    from repro_torch.kernels.flash import ops as a_ops
+    shapes, probe = set(), {}
+    t0 = time.perf_counter()
+    report, sim, launches, expected = launcher_sim_run(argv, shapes,
+                                                       probe=probe)
     rank = int(os.environ["RANK"])
     out = argv[argv.index("--report-out") + 1]
     Path(f"{out}.rank{rank}.json").write_text(json.dumps(
         {"rank": rank, "launches": launches, "expected_launches": expected,
-         "shapes": sorted(shapes)}))
+         "shapes": sorted(shapes), "probe": probe,
+         "other_launches": {"distill": d_ops.kd_loss_rows.launches,
+                            "flash": a_ops.flash_attention_bh.launches},
+         "seconds": time.perf_counter() - t0,
+         "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
     np.savez(f"{out}.rank{rank}.planes.npz",
-             **{str(l): sim.fl.plane_of(l, p).cpu().numpy()
+             **{str(l): make_plane_spec(p).to_plane(p).cpu().numpy()
                 for l, p in sim.params.items()})
 
 
@@ -1417,10 +1600,11 @@ def tolerance_share(got, want):
 
 def mesh_worlds(started, start_mesh, unsharded, mesh_dir):
     """The mesh phase's runs: the unsharded and nudged runs in this
-    process while the probes and the one-rank mesh (in ``started``) run;
-    then, by what the gloo probe found, the two-rank and 2x2 meshes
-    together.  Returns (probes, {mesh shape: (rank results, seconds)},
-    the unsharded run, the nudged run); ``started`` ends empty."""
+    process while the probes, the one-rank mesh and the 1x2 tensor-parallel
+    mesh (in ``started``) run; then, by what the gloo probe found, the
+    two-rank and 2x2 meshes (with and without the tensor-parallel forward)
+    together.  Returns (probes, {world name: (rank results, seconds)}, the
+    unsharded run, the nudged run); ``started`` ends empty."""
     uns = unsharded("unsharded")
     nud = unsharded("nudged", 2.0 ** -23)
     probes, done = {}, {}
@@ -1438,9 +1622,70 @@ def mesh_worlds(started, start_mesh, unsharded, mesh_dir):
         started["2"] = start_mesh("2")
         if gloo.get("all_gather"):
             started["2x2"] = start_mesh("2x2")
-    for shape in list(started):
-        done[shape] = wait_ranks(started.pop(shape))
+            started["2x2-tp"] = start_mesh("2x2-tp")
+    for name in list(started):
+        done[name] = wait_ranks(started.pop(name))
     return probes, done, uns, nud
+
+
+def world_checks(torch, dev, name, res, secs, mesh_dir, uns, allowed):
+    """One rank world of the mesh phase against the unsharded run: every
+    record's host fields equal, each record's losses and each rank's final
+    planes within the allowed tolerance shares, each rank's fedagg
+    launches equal to its records' count; fedagg held against its plain
+    version at every per-rank shape.  Returns (the world's record, its
+    failures)."""
+    from repro_torch.kernels.fedagg import ops as f_ops, ref as f_ref
+    import numpy as np
+    (uns_host, uns_vals), uns_planes, _ = uns
+    shape, tp_fwd = MESH_WORLDS[name]
+    n, m = (int(x) for x in (shape + "x1").split("x")[:2])
+    out = mesh_dir / f"mesh_{name}.json"
+    bad = [(r, rc, err[-1500:]) for r, (rc, _, err) in enumerate(res)
+           if rc != 0]
+    if bad:
+        raise AssertionError(f"mesh {name}: ranks failed {bad}")
+    backend = res[0][1].split("backend=")[1].split()[0]
+    host, vals = report_parts(json.loads(out.read_text()))
+    failures = []
+    if host != uns_host:
+        failures.append(f"mesh {name}: the records' host fields differ "
+                        "from the unsharded run's")
+    ranks = []
+    for r in range(n * m):
+        rec = json.loads(Path(f"{out}.rank{r}.json").read_text())
+        planes = np.load(f"{out}.rank{r}.planes.npz")
+        if rec["launches"] != rec["expected_launches"]:
+            failures.append(f"mesh {name} rank {r}: fedagg "
+                            f"{rec['launches']}, records imply "
+                            f"{rec['expected_launches']}")
+        ranks.append({"rank": r, "launches": rec["launches"],
+                      "expected_launches": rec["expected_launches"],
+                      "other_launches": rec["other_launches"],
+                      "fedagg_shapes": rec["shapes"],
+                      "seconds": rec["seconds"],
+                      "peak_mem_bytes": rec["peak_mem_bytes"],
+                      "probe": rec["probe"],
+                      "plane_share": max(
+                          tolerance_share(planes[l][:len(w)], w)
+                          for l, w in uns_planes.items())})
+    by_round = loss_shares(vals, uns_vals)
+    over = [r for r, (x, a) in enumerate(zip(
+        by_round, allowed["loss_by_round"])) if x > a]
+    if over or max(rk["plane_share"] for rk in ranks) > allowed["plane"]:
+        failures.append(f"mesh {name}: loss shares {by_round}, plane "
+                        f"shares {[rk['plane_share'] for rk in ranks]}; "
+                        f"allowed {allowed}")
+    shapes = sorted({tuple(x) for rk in ranks for x in rk["fedagg_shapes"]})
+    return {"mesh_shape": shape, "ranks": n * m, "backend": backend,
+            "member_forward": ("tp" if tp_fwd else
+                               "gather" if m > 1 else "replicated"),
+            "process_seconds": secs, "loss_share_by_round": by_round,
+            "max_accuracy_gap": accuracy_gap(vals, uns_vals),
+            "per_rank": ranks,
+            "fedagg_shapes_max_abs_err": {
+                f"{C}x{D}": check_fedagg(torch, f_ops, f_ref, dev, C, D)[2]
+                for C, D in shapes}}, failures
 
 
 def phase_mesh(torch, dev, env, n_test, zero_counts):
@@ -1450,28 +1695,30 @@ def phase_mesh(torch, dev, env, n_test, zero_counts):
     by one fp32 ulp, the run's own response to rounding) and on meshes of
     ranks (one process each, as ``mesh_child``): one rank, two ranks on
     the 1D mesh where a backend allows them, and ``2x2 --no-tp-forward``
-    where its all_gather works too.  Every record's host fields equal the
-    unsharded run's; each record's losses and each rank's final planes
-    within the parity tolerance, or within MESH_NUDGE_FACTOR times what
-    the nudge moved them where the run's own conditioning exceeds it
-    (a rank trains C/n members, and cuBLAS and cuDNN round another batch
-    shape otherwise); each rank's fedagg launches equal to its records'
-    count; fedagg held against its plain version at every per-rank shape.
-    The rank worlds share the card with each other and with the in-process
-    runs (``mesh_worlds``), so their seconds overlap.  Returns (the
-    unsharded run's fedagg launches, {mesh shape: launches of each
-    rank})."""
-    import numpy as np
-    from repro_torch.kernels.fedagg import ops as f_ops, ref as f_ref
+    where its all_gather works too; beside them, for the tp phase, 1x2
+    and 2x2 with the tensor-parallel member forward.  Every record's host
+    fields equal the unsharded run's; each record's losses and each rank's
+    final planes within the parity tolerance, or within MESH_NUDGE_FACTOR
+    times what the nudge moved them where the run's own conditioning
+    exceeds it (a rank trains C/n members, and cuBLAS and cuDNN round
+    another batch shape otherwise); each rank's fedagg launches equal to
+    its records' count; fedagg held against its plain version at every
+    per-rank shape (``world_checks``).  The rank worlds share the card
+    with each other and with the in-process runs (``mesh_worlds``), so
+    their seconds overlap.  Returns (the unsharded run's fedagg launches,
+    {world: launches of each rank}, what the tp phase reads: the
+    tensor-parallel worlds' records and failures, the gather 2x2 world's
+    record, the nudge response and the allowed shares)."""
     mesh_dir = ROOT / "build" / "chip_smoke" / "mesh"
     shutil.rmtree(mesh_dir, ignore_errors=True)
     mesh_dir.mkdir(parents=True)
 
-    def start_mesh(shape):
+    def start_mesh(name):
+        shape, tp_fwd = MESH_WORLDS[name]
         n, m = (int(x) for x in (shape + "x1").split("x")[:2])
-        out = mesh_dir / f"mesh_{shape}.json"
+        out = mesh_dir / f"mesh_{name}.json"
         argv = MESH_ARGS + ["--mesh-shape", shape, "--report-out", str(out)]
-        if m > 1:
+        if m > 1 and not tp_fwd:
             argv.append("--no-tp-forward")
         return start_ranks(MESH_CHILD, argv, n * m, env)
 
@@ -1504,6 +1751,7 @@ def phase_mesh(torch, dev, env, n_test, zero_counts):
             started[b] = start_ranks(
                 PROBE_CHILD, [b, str(mesh_dir / f"probe_{b}.json")], 2, env)
         started["1"] = start_mesh("1")
+        started["1x2-tp"] = start_mesh("1x2-tp")
         probes, done, uns, nud = mesh_worlds(started, start_mesh, unsharded,
                                              mesh_dir)
     finally:
@@ -1525,65 +1773,338 @@ def phase_mesh(torch, dev, env, n_test, zero_counts):
     allowed = {"loss_by_round": [max(1.0, MESH_NUDGE_FACTOR * x)
                                  for x in nudge["loss_share_by_round"]],
                "plane": max(1.0, MESH_NUDGE_FACTOR * nudge["plane_share"])}
-    runs, failures = {}, []
-    for shape, (res, secs) in done.items():
-        n, m = (int(x) for x in (shape + "x1").split("x")[:2])
-        out = mesh_dir / f"mesh_{shape}.json"
-        bad = [(r, rc, err[-1500:]) for r, (rc, _, err) in enumerate(res)
-               if rc != 0]
-        if bad:
-            raise AssertionError(f"mesh {shape}: ranks failed {bad}")
-        backend = res[0][1].split("backend=")[1].split()[0]
-        host, vals = report_parts(json.loads(out.read_text()))
-        if host != uns_host:
-            failures.append(f"mesh {shape}: the records' host fields "
-                            "differ from the unsharded run's")
-        acc_gap = accuracy_gap(vals, uns_vals)
-        ranks = []
-        for r in range(n * m):
-            rec = json.loads(Path(f"{out}.rank{r}.json").read_text())
-            planes = np.load(f"{out}.rank{r}.planes.npz")
-            if rec["launches"] != rec["expected_launches"]:
-                failures.append(f"mesh {shape} rank {r}: fedagg "
-                                f"{rec['launches']}, records imply "
-                                f"{rec['expected_launches']}")
-            ranks.append({"rank": r, "launches": rec["launches"],
-                          "expected_launches": rec["expected_launches"],
-                          "fedagg_shapes": rec["shapes"],
-                          "plane_share": max(
-                              tolerance_share(planes[l][:len(w)], w)
-                              for l, w in uns_planes.items())})
-        by_round = loss_shares(vals, uns_vals)
-        over = [r for r, (x, a) in enumerate(zip(
-            by_round, allowed["loss_by_round"])) if x > a]
-        if over or max(rk["plane_share"] for rk in ranks) > allowed["plane"]:
-            failures.append(f"mesh {shape}: loss shares {by_round}, plane "
-                            f"shares {[rk['plane_share'] for rk in ranks]}; "
-                            f"allowed {allowed}")
-        shapes = sorted({tuple(x) for rk in ranks
-                         for x in rk["fedagg_shapes"]})
-        runs[shape] = {
-            "ranks": n * m, "backend": backend,
-            "member_forward": "gather" if m > 1 else "replicated",
-            "process_seconds": secs, "loss_share_by_round": by_round,
-            "max_accuracy_gap": acc_gap, "per_rank": ranks,
-            "fedagg_shapes_max_abs_err": {
-                f"{C}x{D}": check_fedagg(torch, f_ops, f_ref, dev, C, D)[2]
-                for C, D in shapes}}
+    runs, tp_runs, failures, tp_failures = {}, {}, [], []
+    for name, (res, secs) in done.items():
+        rec, bad = world_checks(torch, dev, name, res, secs, mesh_dir, uns,
+                                allowed)
+        if MESH_WORLDS[name][1]:
+            tp_runs[name], tp_failures = rec, tp_failures + bad
+        else:
+            runs[name], failures = rec, failures + bad
     emit({"phase": "mesh", "argv": MESH_ARGS, "backend_probe": probes,
-          "one_rank_only": len(done) == 1,
-          "concurrent": "the probes and the one-rank mesh beside the "
-                        "unsharded runs, then the multi-rank meshes "
-                        "together: seconds overlap",
+          "one_rank_only": len(runs) == 1,
+          "concurrent": "the probes and the one-rank and 1x2 tensor-"
+                        "parallel meshes beside the unsharded runs, then "
+                        "the other multi-rank meshes together: seconds "
+                        "overlap",
           "unsharded": uns_rec, "nudge_response": nudge,
-          "allowed_shares": allowed, "runs": runs,
+          "allowed_shares": allowed,
+          "runs": {k: {kk: vv for kk, vv in v.items() if kk != "per_rank"}
+                   | {"per_rank": [{kk: vv for kk, vv in rk.items()
+                                    if kk != "probe"}
+                                   for rk in v["per_rank"]]}
+                   for k, v in runs.items()},
+          "collectives_per_round": {k: [rk["probe"]["collectives"]
+                                        for rk in v["per_rank"]]
+                                    for k, v in runs.items()},
           "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL,
                         "nudge_factor": MESH_NUDGE_FACTOR}})
     if failures or not nudge["host_equal"]:
         raise AssertionError(f"mesh: {failures}; nudge {nudge}")
-    return uns_rec["launches"], {shape: [rk["launches"]
-                                         for rk in run["per_rank"]]
-                                 for shape, run in runs.items()}
+    return (uns_rec["launches"],
+            {k: [rk["launches"] for rk in v["per_rank"]]
+             for k, v in runs.items()},
+            {"runs": tp_runs, "failures": tp_failures,
+             "gather": runs.get("2x2"), "nudge": nudge, "allowed": allowed})
+
+
+def tp_lm_child(argv):
+    """One rank of a tp phase LM world (``RANK`` and ``WORLD_SIZE`` in
+    its environment; every rank on ``cuda:0``, over gloo): lm_main's
+    federation at ``argv[2]`` participants on a 1x2 mesh with the
+    tensor-parallel member forward (``argv[1]`` "tp") or the gather path
+    ("gather"), ``train()`` once with the kernel counts set to 0 before
+    it; writes ``rank<r>.json`` under ``argv[0]``: the per-round member
+    losses, the launches and what the code implies, fedagg's shapes, the
+    query heads each flash launch took, the probe, the collective bytes
+    per round, peak memory and seconds."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import aggregation, server as srv
+    from repro_torch.kernels.distill import ops as d_ops
+    from repro_torch.kernels.fedagg import ops as f_ops
+    from repro_torch.kernels.flash import ops as a_ops
+    from repro_torch.launch import mesh as mesh_lib
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    mesh_lib.init_world(rank, world, "env://", "gloo")
+    mesh = mesh_lib.make_sim_mesh(f"1x{world}", device_type="cuda")
+    calls = record_collectives()
+    shapes, heads = set(), {}
+    aggregate_plane, flash_bh = (aggregation.aggregate_plane,
+                                 a_ops.flash_attention_bh)
+
+    def recording(plane, weights):
+        shapes.add(tuple(plane.shape))
+        return aggregate_plane(plane, weights)
+
+    def flash(q, k, v, **kw):
+        heads[kw["heads"]] = heads.get(kw["heads"], 0) + 1
+        return flash_bh(q, k, v, **kw)
+
+    # the kernel's own count reads its module's name, so the wrapper
+    # carries it
+    flash.launches = 0
+    aggregation.aggregate_plane, a_ops.flash_attention_bh = recording, flash
+    t0 = time.perf_counter()
+    srv.FedRAC = probe_engine(srv.FedRAC, calls)
+    mode, participants = argv[1], int(argv[2])
+    base, cfg, lm, ltest, _ = lm_main_engine(
+        srv, torch, "cuda", mesh=mesh, participants=participants,
+        tp_forward=mode == "tp")
+    live = [l for l in range(lm.m) if lm.assignment.members.get(l)]
+    f_ops.weighted_aggregate.launches = d_ops.kd_loss_rows.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    lm.train(ltest)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    R, L, steps = cfg.rounds, base.n_layers, cfg.steps_per_round
+    H = base.n_heads
+    # the member steps and a slave's teacher forward take the rank's local
+    # heads under the TP forward; the evaluation, outside the block, every
+    # head
+    steps_heads = sum(R * L * (steps + (1 if l > 0 else 0)) for l in live)
+    by_heads = ({str(H // world): steps_heads, str(H): R * L * len(live)}
+                if mode == "tp" else {str(H): steps_heads + R * L * len(live)})
+    Path(argv[0], f"rank{rank}.json").write_text(json.dumps({
+        "rank": rank, "mode": mode, "participants": participants,
+        "tp": lm._tp, "block_losses": lm.block_losses,
+        "launches": {"fedagg": f_ops.weighted_aggregate.launches,
+                     "distill": d_ops.kd_loss_rows.launches,
+                     "flash": flash.launches},
+        # per dispatched round of a cluster: one launch per layer for each
+        # member step, one for a slave's teacher forward, one for the
+        # round's evaluation (lm_main's formula without its KD report)
+        "expected_launches": {
+            "fedagg": R * len(live), "distill": 0,
+            "flash": sum(R * L * (steps + 1 + (1 if l > 0 else 0))
+                         for l in live)},
+        "fedagg_shapes": sorted(shapes),
+        "flash_launches_by_heads": {str(h): n for h, n in heads.items()},
+        "expected_flash_launches_by_heads": by_heads,
+        # a TP plane's chunk length (the gather path has no chunks)
+        "chunk": ({str(l): lm.plane_spec(l).d_loc for l in live}
+                  if lm._tp else None),
+        "probe": lm.probe,
+        "collectives": collective_bytes(calls, lm.probe["rounds"]),
+        "train_seconds": train_s,
+        "process_seconds": time.perf_counter() - t0,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}))
+    torch.distributed.destroy_process_group()
+
+
+def lm_world(env, out_dir, mode, participants):
+    """A tp phase LM world of two ``tp_lm_child`` ranks in ``mode`` ("tp"
+    or "gather") at ``participants``: (their records, its seconds)."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    res, secs = wait_ranks(start_ranks(
+        TP_LM_CHILD, [str(out_dir), mode, str(participants)], 2, env),
+        timeout=900)
+    bad = [(r, rc, err[-2000:]) for r, (rc, _, err) in enumerate(res)
+           if rc != 0]
+    if bad:
+        raise AssertionError(f"tp LM {mode} world at {participants} "
+                             f"participants: ranks failed {bad}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(2)], secs
+
+
+def check_lm_ranks(recs, want, allowed, label, failures):
+    """Hold each rank record of an LM world: its member losses against
+    ``want`` within ``allowed`` shares of the parity tolerance, its
+    launches (and flash's by query heads) as the code implies; under the
+    TP forward whole-leaf copies equal and no plane column gathered
+    inside a block beyond its outputs, on the gather path the plane's
+    columns gathered in every block.  Appends what fails to ``failures``
+    and returns the records trimmed for the phase line."""
+    out = []
+    for rec in recs:
+        r, got = rec["rank"], rec.pop("block_losses")
+        shares = [[tolerance_share(a, b) for a, b in zip(gl, wl)]
+                  for (_, gl), (_, wl) in zip(got, want)]
+        if ([lv for lv, _ in got] != [lv for lv, _ in want]
+                or any(x > a for sb, ab in zip(shares, allowed)
+                       for x, a in zip(sb, ab))):
+            failures.append(f"{label} rank {r}: loss shares {shares}, "
+                            f"allowed {allowed}")
+        if (rec["launches"] != rec["expected_launches"]
+                or rec["tp"] != (rec["mode"] == "tp")):
+            failures.append(f"{label} rank {r}: tp {rec['tp']}, launches "
+                            f"{rec['launches']}, expected "
+                            f"{rec['expected_launches']}")
+        if (rec["flash_launches_by_heads"]
+                != rec["expected_flash_launches_by_heads"]):
+            failures.append(f"{label} rank {r}: flash launches by heads "
+                            f"{rec['flash_launches_by_heads']}, expected "
+                            f"{rec['expected_flash_launches_by_heads']}")
+        pr = rec.pop("probe")
+        over = [b for b in pr["blocks"] if b["plane_gathers"] > b["outputs"]]
+        if rec["mode"] == "tp":
+            wrong = over or pr["replica_mismatches"] or not pr["replica_checks"]
+        else:
+            wrong = not pr["blocks"] or len(over) != len(pr["blocks"])
+        if wrong:
+            failures.append(f"{label} rank {r}: probe {pr}")
+        rec.update(loss_share_by_round=shares,
+                   replica_checks=pr["replica_checks"],
+                   replica_mismatches=pr["replica_mismatches"],
+                   plane_gathers_per_block=[b["plane_gathers"]
+                                            for b in pr["blocks"]])
+        out.append(rec)
+    return out
+
+
+def phase_tp(torch, dev, env, tp_state, lm_ref):
+    """Phase 21, ``tp``: the tensor-parallel member forward on the card.
+    (a) The CNN worlds the mesh phase ran with the TP forward (1x2, 2x2):
+    besides ``world_checks``, each rank unravelled only TP planes whose
+    whole leaves' copies are equal in every chunk, gathered no plane
+    column along ``model`` inside a block beyond the block's outputs at
+    its end, and gave fedagg its (C/n, d_loc) blocks.  (b) lm_main's
+    federation on a 1x2 mesh of two rank processes (``tp_lm_child``):
+    flash on each rank's local heads, launches as the code implies, the
+    per-round member losses against lm_main's within the parity tolerance
+    or MESH_NUDGE_FACTOR times what a one-ulp nudge of lm_main's initial
+    parameters moves them (run here first); fedagg at the ranks' shapes
+    and flash at the local-head shape held against their plain versions
+    and timed beside their bounds and library calls.  (c) At
+    LM_CUT_PARTICIPANTS, lm_main unsharded here, then the gather path's
+    1x2 world and the TP forward's, each held to it within the parity
+    tolerance (``check_lm_ranks``), fedagg checked at their shapes.  All:
+    per-rank peak memory, seconds and collective bytes per round.
+    Returns the launches per rank of each world."""
+    from repro_torch.core import server as srv
+    from repro_torch.kernels.fedagg import ops as f_ops, ref as f_ref
+    from repro_torch.kernels.flash import ops as a_ops, ref as a_ref
+    failures = list(tp_state["failures"])
+    # (a) the CNN worlds
+    cnn = {}
+    for name, run in tp_state["runs"].items():
+        for rk in run["per_rank"]:
+            pr = rk.pop("probe")
+            chunks = set(pr["chunk"].values())
+            blocks_over = [b for b in pr["blocks"]
+                           if b["plane_gathers"] > b["outputs"]]
+            if not (pr["tp"] and pr["replica_checks"]
+                    and not pr["replica_mismatches"] and not blocks_over):
+                failures.append(f"tp {name} rank {rk['rank']}: probe "
+                                f"{ {k: v for k, v in pr.items() if k != 'blocks'} }, "
+                                f"blocks over {blocks_over}")
+            if not any(c in chunks for _, c in rk["fedagg_shapes"]):
+                failures.append(f"tp {name} rank {rk['rank']}: no fedagg "
+                                f"call on a chunk {chunks}: "
+                                f"{rk['fedagg_shapes']}")
+            rk.update(replica_checks=pr["replica_checks"],
+                      replica_mismatches=pr["replica_mismatches"],
+                      blocks=len(pr["blocks"]),
+                      plane_gathers_per_block=[b["plane_gathers"]
+                                               for b in pr["blocks"]],
+                      outputs_per_block=[b["outputs"] for b in pr["blocks"]],
+                      collectives_per_round=pr["collectives"],
+                      chunk=sorted(chunks))
+        cnn[name] = run
+    gather = tp_state["gather"]
+    if gather is not None:
+        gather = {"process_seconds": gather["process_seconds"],
+                  "per_rank": [{"peak_mem_bytes": rk["peak_mem_bytes"],
+                                "seconds": rk["seconds"],
+                                "collectives_per_round":
+                                    rk["probe"]["collectives"]}
+                               for rk in gather["per_rank"]]}
+
+    # (b) the LM: lm_main nudged by one ulp here, then the 1x2 world
+    torch.cuda.empty_cache()
+    _, _, lmn, ltest, _ = lm_main_engine(srv, torch, "cuda",
+                                         nudge=2.0 ** -23)
+    lmn.train(ltest)
+    nud_losses = lmn.block_losses
+    del lmn
+    torch.cuda.empty_cache()
+    tp_root = ROOT / "build" / "chip_smoke" / "tp"
+    recs, lm_secs = lm_world(env, tp_root / "full", "tp", LM_PARTICIPANTS)
+    want = lm_ref["block_losses"]
+    nudge = [[tolerance_share(a, b) for a, b in zip(nl, wl)]
+             for (_, nl), (_, wl) in zip(nud_losses, want)]
+    allowed = [[max(1.0, MESH_NUDGE_FACTOR * x) for x in blk]
+               for blk in nudge]
+    lm_ranks = check_lm_ranks(recs, want, allowed, "tp LM", failures)
+    # (c) at the cut member count: the unsharded run here, then the gather
+    # path's world and the TP forward's, each held to it
+    torch.cuda.empty_cache()
+    _, _, lmc, ctest, _ = lm_main_engine(srv, torch, "cuda",
+                                         participants=LM_CUT_PARTICIPANTS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lmc.train(ctest)
+    torch.cuda.synchronize()
+    cut = {"participants": LM_CUT_PARTICIPANTS,
+           "capacity": {str(l): lmc._capacity(len(m))
+                        for l, m in lmc.assignment.members.items() if m},
+           "unsharded": {"train_seconds": time.perf_counter() - t0,
+                         # this process's peak, with what earlier phases
+                         # still hold
+                         "peak_mem_bytes": torch.cuda.max_memory_allocated()}}
+    cut_losses = lmc.block_losses
+    del lmc
+    torch.cuda.empty_cache()
+    for mode in ("gather", "tp"):
+        recs, secs = lm_world(env, tp_root / f"cut_{mode}", mode,
+                              LM_CUT_PARTICIPANTS)
+        cut[mode] = {"process_seconds": secs, "per_rank": check_lm_ranks(
+            recs, cut_losses, [[1.0] * len(l) for _, l in cut_losses],
+            f"tp LM cut {mode}", failures)}
+    fed_timed = {}
+    for C, D in sorted({tuple(x) for rk in lm_ranks
+                        for x in rk["fedagg_shapes"]}):
+        x, w, err = check_fedagg(torch, f_ops, f_ref, dev, C, D)
+        fed_timed[f"{C}x{D}"] = dict(time_fedagg(torch, f_ops, f_ref, x, w),
+                                     max_abs_err=err)
+        del x, w
+    for C, D in sorted({tuple(x) for mode in ("gather", "tp")
+                        for rk in cut[mode]["per_rank"]
+                        for x in rk["fedagg_shapes"]} - {
+                            tuple(map(int, k.split("x"))) for k in fed_timed}):
+        x, w, err = check_fedagg(torch, f_ops, f_ref, dev, C, D)
+        cut.setdefault("fedagg_checked", {})[f"{C}x{D}"] = err
+        del x, w
+    torch.cuda.empty_cache()
+    H, hd, C0 = lm_ref["heads"] // 2, lm_ref["head_dim"], lm_ref["capacity"]
+    B = LM_FL["local_batch"]
+    flash_local = check_flash(torch, a_ops, a_ref, dev, {
+        "name": "tp_lm_member_step_local_heads", "bh": C0 * B * H,
+        "kv_rows": C0 * B * H, "H": H, "S": LM_SEQ, "hd": hd,
+        "dtype": "float32", "causal": True, "window": 0, "softcap": 0.0})
+    emit({"phase": "tp", "cnn": {"argv": MESH_ARGS, "runs": cnn,
+                                 "gather_2x2": gather,
+                                 "allowed_shares": tp_state["allowed"]},
+          "lm": {"config": "olmo-1b", "layers": "2 of 16", "mesh": "1x2",
+                 "backend": "gloo", "heads_per_rank": H,
+                 "process_seconds": lm_secs, "per_rank": lm_ranks,
+                 "nudge_share_by_block": nudge, "allowed_by_block": allowed,
+                 "fedagg_timed": fed_timed,
+                 "flash_local_heads": flash_local,
+                 "cut": cut},
+          "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL,
+                        "nudge_factor": MESH_NUDGE_FACTOR}})
+    if failures:
+        raise AssertionError(f"tp: {failures}")
+    launches = {k: {f"cnn_{n}": [rk["launches"] if k == "fedagg"
+                                 else rk["other_launches"][k]
+                                 for rk in run["per_rank"]]
+                    for n, run in cnn.items()}
+                for k in ("fedagg", "distill", "flash")}
+    for k in launches:
+        launches[k]["lm_1x2"] = [rk["launches"][k] for rk in lm_ranks]
+        for mode in ("gather", "tp"):
+            launches[k][f"lm_1x2_{mode}_cut"] = [
+                rk["launches"][k] for rk in cut[mode]["per_rank"]]
+    return launches, flash_local
 
 
 def main():
@@ -1658,21 +2179,12 @@ def main():
                        eng.plane_spec(l).d_pad) for l in live}
     n_test = len(test["y"])
 
-    lm_base = get_config("olmo-1b").replace(n_layers=2, attn_impl="pallas")
+    lm_base, lm_cfg, lm, ltest, corpus_s = lm_main_engine(srv, torch, "cuda")
     lm_cut = {"n_layers": "2 of 16", "rounds": 2, "steps_per_round": 2,
               "local_batch": 4, "seq": LM_SEQ,
               "corpus_tokens": LM_CORPUS_TOKENS,
               "participants": LM_PARTICIPANTS, "weights": "random, seeded",
               "data": "synthetic Markov corpus (make_lm_corpus)"}
-    lm_cfg = srv.FLConfig(rounds=2, rounds_per_dispatch=2, steps_per_round=2,
-                          local_batch=4, class_balanced=False, compact_to=2,
-                          lr=0.05, seed=3)
-    t0 = time.perf_counter()
-    lparts, lcd, ltest = lm_federation(LM_PARTICIPANTS, lm_base.vocab_size,
-                                       LM_CORPUS_TOKENS, LM_SEQ, 3)
-    corpus_s = time.perf_counter() - t0
-    lm = TokenFedRAC(lparts, lcd, lm_family(lm_base, 0.5), lm_cfg,
-                     classes=lm_base.padded_vocab, device="cuda").setup()
     lm_members = lm.assignment.members
     lm_live = [l for l in range(lm.m) if lm_members.get(l)]
     if not (0 in lm_live and any(l > 0 for l in lm_live)):
@@ -2248,6 +2760,7 @@ def main():
     lres = lm.train(ltest)
     torch.cuda.synchronize()
     lm_train_s = time.perf_counter() - t0
+    lm_block_losses = list(lm.block_losses)
     lt = torch.as_tensor(ltest["tokens"], device=dev)
     ly = lt[:, -1]
     lm_kd = {}
@@ -2941,8 +3454,12 @@ def main():
     train_launches = phase_train(torch, dev, env, zero_counts,
                                  read_counts)
     phase_lm_example(env)
-    uns_launches, mesh_launches = phase_mesh(torch, dev, env, n_test,
-                                             zero_counts)
+    uns_launches, mesh_launches, tp_state = phase_mesh(
+        torch, dev, env, n_test, zero_counts)
+    # 21. the tensor-parallel member forward ------------------------------
+    tp_launches, flash_local = phase_tp(torch, dev, env, tp_state, {
+        "block_losses": lm_block_losses, "heads": H, "head_dim": hd,
+        "capacity": lm_shapes[0][0]})
 
     # kernels line, card line, last line -----------------------------------
     D0 = lm_shapes[0][1]
@@ -2964,6 +3481,8 @@ def main():
     by_path["fedagg"]["mesh_unsharded"] = uns_launches
     for shape, per_rank in mesh_launches.items():
         by_path["fedagg"][f"mesh_{shape}_per_rank"] = per_rank
+    for k in by_path:
+        by_path[k]["tp"] = tp_launches[k]
     emit({"kernels": [
         {"name": "fedagg", "route": "cuda",
          "source": "src/repro_torch/kernels/fedagg/csrc/fedagg.cu",
@@ -2989,6 +3508,9 @@ def main():
          "shape": [fl["bh"], fl["S"], fl["hd"]],
          "launches": lm_launches["flash"],
          "launches_by_path": by_path["flash"], "variant": fl["variant"],
+         "tp_local_heads": {k: flash_local[k] for k in (
+             "bh", "H", "S", "hd", "max_abs_err", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
          "tensor_cores": fl["route"] == "tc",
          "bound_cuda_core_ms": fl["bound_cuda_core_ms"], "peak": fl["peak"],
          "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],

@@ -2,8 +2,12 @@
 the federated LM family.
 
 ``init(generator, level)`` draws on the CPU from a ``torch.Generator``; the
-engine moves parameters to its device.  ``param_specs`` stays None until the
-tensor-parallel slice of the port.
+engine moves parameters to its device.  ``param_specs(level, template,
+msize, axis)`` gives each leaf's tensor-parallel split as a
+``launch.sharding`` spec (``{axis: dim}``, or ``{}`` for a whole leaf), as
+the JAX families' PartitionSpecs do; under a TP context (``models.tp``)
+``loss_and_logits`` runs the rank's slice of the model and returns the
+whole (B, classes) logits on every rank.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.distill import ce_loss
 from repro_torch.core.scaling import compress_config, model_bytes, param_count
 from repro_torch.core.server import FLModelFamily
-from repro_torch.models import cnn, transformer
+from repro_torch.launch.sharding import tp_specs
+from repro_torch.models import cnn, tp, transformer
 
 
 def cnn_family(*, classes: int = 10, in_channels: int = 1, alpha: float = 0.5,
@@ -25,7 +30,8 @@ def cnn_family(*, classes: int = 10, in_channels: int = 1, alpha: float = 0.5,
                                base_width=base_width)
 
     def loss_and_logits(level, params, batch):
-        logits = cnn.forward(params, batch["x"])
+        logits = cnn.forward(params, batch["x"],
+                             cnn.filters(alpha, level, base_width))
         return ce_loss(logits, batch["y"]).mean(), logits
 
     def mb(level):
@@ -44,8 +50,21 @@ def cnn_family(*, classes: int = 10, in_channels: int = 1, alpha: float = 0.5,
                 cur = max(1, cur // 4)
         return total
 
+    def param_specs(level, template, msize, axis):
+        """Megatron's conv pairing: even convs split their output channels
+        (dim 3), odd convs their input channels (dim 2), so a split
+        activation feeds straight in; the dense head is row-parallel (its
+        input channels arrive split from the last, even, conv).  Widths
+        that do not divide ``msize`` are demoted to whole leaves
+        downstream."""
+        convs = [{"w": {axis: 3}, "b": {axis: 0}} if i % 2 == 0
+                 else {"w": {axis: 2}, "b": {}}
+                 for i in range(len(template["convs"]))]
+        return {"convs": convs, "dense": {"w": {axis: 0}, "b": {}}}
+
     return FLModelFamily(init=init, loss_and_logits=loss_and_logits,
-                         model_bytes=mb, flops_per_sample=flops)
+                         model_bytes=mb, flops_per_sample=flops,
+                         param_specs=param_specs)
 
 
 def mlp_family(*, classes: int = 10, in_dim: int = 14 * 14,
@@ -63,18 +82,30 @@ def mlp_family(*, classes: int = 10, in_dim: int = 14 * 14,
 
     def loss_and_logits(level, params, batch):
         x = batch["x"].reshape(batch["x"].shape[0], -1)
+        split = tp.splits(width(level))
+        if split:
+            x = tp.copy_to_tp(x)
         z = F.relu(x @ params["w1"] + params["b1"])
-        logits = z @ params["w2"] + params["b2"]
+        logits = z @ params["w2"]
+        if split:
+            logits = tp.reduce_from_tp(logits)
+        logits = logits + params["b2"]
         return ce_loss(logits, batch["y"]).mean(), logits
 
     def mb(level):
         h = width(level)
         return 4.0 * (in_dim * h + h + h * classes + classes)
 
+    def param_specs(level, template, msize, axis):
+        # column-parallel layer 1, row-parallel layer 2: one all_reduce per
+        # forward (the canonical Megatron MLP split)
+        return {"w1": {axis: 1}, "b1": {axis: 0}, "w2": {axis: 0}, "b2": {}}
+
     return FLModelFamily(
         init=init, loss_and_logits=loss_and_logits, model_bytes=mb,
         flops_per_sample=lambda l: 2.0 * (in_dim * width(l)
-                                          + width(l) * classes))
+                                          + width(l) * classes),
+        param_specs=param_specs)
 
 
 def lm_family(base_cfg: ModelConfig, alpha: float = 0.5) -> FLModelFamily:
@@ -100,12 +131,38 @@ def lm_family(base_cfg: ModelConfig, alpha: float = 0.5) -> FLModelFamily:
         logits, aux = transformer.forward(cfg, params, batch["tokens"])
         lg = logits[:, :-1].to(torch.float32)
         lbl = batch["tokens"][:, 1:].long()
-        lse = torch.logsumexp(lg, dim=-1)
-        picked = torch.gather(lg, -1, lbl[..., None])[..., 0]
-        ce = torch.mean(lse - picked) + cfg.router_aux_coef * aux
-        return ce, logits[:, -1]
+        if transformer.vocab_split(cfg):
+            # vocab-parallel loss; KD sees the whole (B, V_pad) logits
+            ce = torch.mean(tp.vocab_parallel_ce(lg, lbl))
+            kd_logits = tp.gather_from_tp(logits[:, -1], -1)
+        else:
+            lse = torch.logsumexp(lg, dim=-1)
+            picked = torch.gather(lg, -1, lbl[..., None])[..., 0]
+            ce = torch.mean(lse - picked)
+            kd_logits = logits[:, -1]
+        return ce + cfg.router_aux_coef * aux, kd_logits
+
+    def param_specs(level, template, msize, axis):
+        """The launch stack's Megatron name rules (``tp_specs``):
+        vocab-parallel embed and head, column-parallel wq / wk / wv / up,
+        row-parallel wo / down.  The TP forward covers decoder-only
+        attention blocks with a dense MLP; other blocks refuse."""
+        cfg = cfg_at(level)
+        other = sorted({k for k in cfg.block_pattern
+                        if k not in ("attn", "attn_local")}
+                       | {"moe" for j in range(cfg.period)
+                          if cfg.ffn_kind(j) == "moe"}
+                       | ({"encdec"} if cfg.family == "encdec" else set()))
+        if other:
+            raise NotImplementedError(
+                f"the tensor-parallel member forward covers decoder-only "
+                f"attention blocks with a dense MLP; {cfg.name} has "
+                f"{other} (ROADMAP item 11c); tp_forward=False gathers "
+                "the plane's columns for a replicated forward")
+        return tp_specs(cfg, template, msize, axis)
 
     return FLModelFamily(
         init=init, loss_and_logits=loss_and_logits,
         model_bytes=lambda l: float(model_bytes(cfg_at(l))),
-        flops_per_sample=lambda l: 6.0 * param_count(cfg_at(l)))
+        flops_per_sample=lambda l: 6.0 * param_count(cfg_at(l)),
+        param_specs=param_specs)

@@ -35,13 +35,20 @@ running the same engine) the dispatch blocks shard the member axis along
 ``data``: each rank trains its member rows, contracts them with the fedagg
 kernel and one ``all_reduce`` a round finishes the FedAvg.  A ``model``
 axis of more than one rank also splits the plane, bank and teacher stacks
-by columns inside the block, gathering the columns each round for the
-member forward (JAX's ``tp_forward=False`` path).  The tensor-parallel
-member forward (``tp_forward=True`` on a 2D mesh) is ROADMAP item 11b.
+by columns inside the block.  With ``tp_forward=True`` (the default, as in
+JAX) and a family with ``param_specs``, the planes take the tensor-parallel
+layout (``core.plane.TPPlaneSpec``): each rank's column block is exactly
+the leaves its slice of the model uses, and the member forward and
+backward run Megatron-split over ``model`` (``models.tp``), so no plane
+column is gathered inside a block.  ``tp_forward=False`` gathers the
+plane's columns each round for a replicated member forward.  Between
+blocks every rank holds the global plane (in the TP layout when TP), where
+JAX keeps it sharded.
 """
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Callable
@@ -53,7 +60,8 @@ from torch.func import vmap
 from repro_torch.core import aggregation, assignment as asg, clustering
 from repro_torch.core import compaction, cost_model, rounds as rnd
 from repro_torch.core.client import local_update, make_cluster_update
-from repro_torch.core.plane import make_plane_spec, plane_specs
+from repro_torch.core.plane import (make_plane_spec, make_tp_plane_spec,
+                                    plane_specs)
 from repro_torch.core.resources import (LAMBDA_PAPER, Fleet, Participant,
                                         resource_matrix)
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -61,6 +69,7 @@ from repro_torch.data import device_sampler
 from repro_torch.data.sampler import class_balanced_batches, sample_batches
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import axis_size
+from repro_torch.models.tp import tp_shard_ctx
 from repro_torch.obs import NULL_OBS
 from repro_torch.obs.trace import synchronize
 
@@ -73,7 +82,9 @@ class FLModelFamily:
     loss_and_logits: Callable
     model_bytes: Callable          # level -> bytes
     flops_per_sample: Callable     # level -> flops
-    param_specs: Callable | None = None     # tensor-parallel slice
+    # (level, template, msize, axis) -> per-leaf {axis: dim} split specs,
+    # for the tensor-parallel member forward on a 2D mesh
+    param_specs: Callable | None = None
 
 
 @dataclass
@@ -119,8 +130,9 @@ class FLConfig:
     # them: the caller must not read the input expecting the old values
     donate_plane: bool = True
     # on a 2D (data x model) mesh, run the member forward tensor-parallel
-    # over the model axis (ROADMAP item 11b, not ported: a 2D mesh refuses
-    # it); False gathers the plane's columns for a replicated forward
+    # over the model axis on a TP-layout plane (needs the family's
+    # param_specs); False gathers the plane's columns for a replicated
+    # forward
     tp_forward: bool = True
     consts: rnd.ConvergenceConstants = field(
         default_factory=rnd.ConvergenceConstants)
@@ -195,22 +207,14 @@ class _Program:
         return out
 
 
-def check_mesh_config(cfg: FLConfig, mesh, model_axis: str = "model"
-                      ) -> None:
+def check_mesh_config(cfg: FLConfig, mesh) -> None:
     """The mesh contract: a mesh shards the dispatch path, so it needs
-    ``rounds_per_dispatch > 1``; a 2D mesh's tensor-parallel forward is not
-    ported."""
+    ``rounds_per_dispatch > 1``."""
     if cfg.rounds_per_dispatch == 1:
         raise ValueError(
             "a mesh shards the device-resident dispatch path — set "
             "rounds_per_dispatch>1 (the legacy one-round path would "
             "silently ignore it)")
-    if axis_size(mesh, model_axis) > 1 and cfg.tp_forward:
-        raise NotImplementedError(
-            "the tensor-parallel member forward on a 2D mesh "
-            "(tp_forward=True) is not ported yet: it waits for ROADMAP "
-            "item 11b; tp_forward=False gathers the plane's columns for a "
-            "replicated forward")
 
 
 class FedRAC:
@@ -235,7 +239,7 @@ class FedRAC:
         self.mesh_axis = mesh_axis
         self._mesh_n = self._mesh_m = 1
         if mesh is not None:
-            check_mesh_config(cfg, mesh, mesh_model_axis)
+            check_mesh_config(cfg, mesh)
             self._mesh_n = axis_size(mesh, mesh_axis)
             self._mesh_m = axis_size(mesh, mesh_model_axis)
         self.model_axis = mesh_model_axis if self._mesh_m > 1 else None
@@ -263,6 +267,13 @@ class FedRAC:
         self._shard_len_pad = None
         self._class_m_pad = None
         self._class_tables = {}           # pid -> (table, counts)
+        # the tensor-parallel member forward: a 2D mesh, tp_forward and a
+        # family with per-leaf split rules (else the columns are gathered)
+        self._tp = (self._mesh_m > 1 and cfg.tp_forward
+                    and family.param_specs is not None)
+        self._t_plane_cache = None        # (teacher pytree, its TP plane)
+        if self._tp:
+            self.plane_spec(0)            # a family it does not cover refuses
 
     # ------------------------------------------------------------ setup
     def setup(self):
@@ -405,12 +416,20 @@ class FedRAC:
         """Flat-plane recipe of one level (cached; built from a template
         draw, whose values are not used).  On a 2D mesh D pads to a
         multiple of ``model_size × PLANE_ALIGN``, so each rank's column
-        slice stays aligned for the fedagg kernel."""
+        slice stays aligned for the fedagg kernel; with the TP forward it
+        is the family's tensor-parallel layout (``TPPlaneSpec``)."""
         if level not in self._plane_specs:
             template = self.family.init(torch.Generator().manual_seed(0),
                                         level)
-            self._plane_specs[level] = make_plane_spec(
-                template, model_size=self._mesh_m)
+            if self._tp:
+                specs = self.family.param_specs(level, template,
+                                                self._mesh_m, self.model_axis)
+                self._plane_specs[level] = make_tp_plane_spec(
+                    template, specs, msize=self._mesh_m,
+                    axis=self.model_axis)
+            else:
+                self._plane_specs[level] = make_plane_spec(
+                    template, model_size=self._mesh_m)
         return self._plane_specs[level]
 
     def plane_of(self, level: int, params) -> torch.Tensor:
@@ -418,7 +437,8 @@ class FedRAC:
         return self.plane_spec(level).to_plane(params)
 
     def params_of(self, level: int, plane):
-        """Unravel a plane into a params pytree (views into the plane)."""
+        """Unravel a plane into a params pytree (views into the plane, or
+        their copies out of a TP-layout plane)."""
         return self.plane_spec(level).to_params(plane)
 
     # The JAX package commits planes, stacks and member rows to their mesh
@@ -719,7 +739,14 @@ class FedRAC:
         columns) block with the fedagg kernel and sums it over ``data``
         with one ``all_reduce``; the round's weight total comes from the
         global weight vectors, so it is the unsharded program's.  The
-        block's outputs are gathered back to global tensors at its end."""
+        block's outputs are gathered back to global tensors at its end.
+
+        With the TP forward the column slice of a TP-layout plane is the
+        rank's chunk: its member stack comes from ``local_params`` (the
+        teacher's too), the update runs Megatron-split inside
+        ``tp_shard_ctx``, and ``local_to_chunk`` writes the (C/n, d_loc)
+        rows back for fedagg.  Nothing is gathered over ``model`` inside
+        the block but the forward's own activations."""
         cfg = self.cfg
         key = ("dispatch", level, use_kd, capacity, R, balanced, banked,
                want_history, t_per_round, cfg.lr, cfg.kd_T, cfg.kd_alpha,
@@ -732,6 +759,8 @@ class FedRAC:
         spec = self.plane_spec(level)
         mesh, axis, maxis, sp = (self.mesh, self.mesh_axis, self.model_axis,
                                  self._pspecs)
+        tp = self._tp
+        t_spec = self.plane_spec(0) if tp and use_kd else None
 
         def local(x, split):
             """This rank's block of a global block input."""
@@ -758,19 +787,39 @@ class FedRAC:
             return sharding.local_block(mesh, member_plane,
                                         {maxis: 1}).contiguous()
 
+        def member_params(g):
+            """This rank's column block of the plane -> the params its
+            member forward takes."""
+            if tp:
+                return spec.local_params(g)
+            return spec.to_params(gather_cols(g))
+
+        def member_block(new_stack):
+            """Updated (C, ...) member params -> this rank's (C, D_pad/m)
+            block of the member plane."""
+            if tp:
+                return spec.local_to_chunk(new_stack)
+            return local_cols(spec.to_plane(new_stack))
+
+        def teacher_params(t):
+            """A teacher plane's column block -> the teacher's params."""
+            if tp:
+                return t_spec.local_params(t)
+            return self.params_of(0, gather_cols(t))
+
         def one_round(g, bank_p, bank_w, total, idx, shards, step_masks,
                       weights, teacher):
             C = step_masks.shape[0]
             rows = torch.arange(C, device=g.device)[:, None, None]
             batches = vmap(self._batch_from_gathered)(
                 tree_map(lambda v: v[rows, idx], shards))
-            params = spec.to_params(gather_cols(g))
+            params = member_params(g)
             p_stack = tree_map(lambda x: x.expand(C, *x.shape), params)
             teachers = (self._teacher_logits(teacher, batches)
                         if use_kd else None)
             new_stack, losses = update(p_stack, batches, step_masks,
                                        teachers)
-            new_plane = local_cols(spec.to_plane(new_stack))  # (C, D_pad/m)
+            new_plane = member_block(new_stack)           # (C, D_pad/m)
             denom = torch.where(total > 0.0, total, torch.ones_like(total))
             agg = aggregation.aggregate_plane(new_plane, weights / denom)
             if banked:
@@ -791,6 +840,8 @@ class FedRAC:
             weights = local(weights, sp["rows"])
             if t_per_round:
                 teacher = local(teacher, sp["stack"])
+            elif tp and use_kd:            # a fixed teacher as a TP plane
+                teacher = t_spec.local_params(local(teacher, sp["plane"]))
             bank_p = bank_w = bank_gain = None
             if banked:
                 bank_p, bank_w, bank_gain = bank
@@ -799,18 +850,18 @@ class FedRAC:
                 bank_w = local(bank_w, sp["rows"])
                 bank_gain = local(bank_gain, sp["rows"])
             losses, history = [], []
-            for i in range(R):
-                t = (self.params_of(0, gather_cols(teacher[i]))
-                     if t_per_round else teacher)
-                total = totals[min(i, 1)] if banked else w_total
-                g, rows, l = one_round(g, bank_p, bank_w, total, idx[i],
-                                       shards, step_masks, weights, t)
-                if banked:
-                    bank_p, bank_w = rows, bank_gain
-                del rows
-                losses.append(l)
-                if want_history:
-                    history.append(g)
+            with tp_shard_ctx(mesh, maxis) if tp else nullcontext():
+                for i in range(R):
+                    t = teacher_params(teacher[i]) if t_per_round else teacher
+                    total = totals[min(i, 1)] if banked else w_total
+                    g, rows, l = one_round(g, bank_p, bank_w, total, idx[i],
+                                           shards, step_masks, weights, t)
+                    if banked:
+                        bank_p, bank_w = rows, bank_gain
+                    del rows
+                    losses.append(l)
+                    if want_history:
+                        history.append(g)
             return (gathered(g, sp["plane"]),
                     (gathered(bank_p, sp["members"]), bank[2]) if banked
                     else None,
@@ -887,6 +938,13 @@ class FedRAC:
         idx = torch.as_tensor(idx, dtype=torch.int64).to(self.device)
         t_arg = (teacher_planes if t_per_round
                  else teacher if use_kd else None)
+        if use_kd and not t_per_round and self._tp:
+            # the TP block takes a fixed teacher as a TP-layout plane,
+            # converted once per teacher pytree
+            if (self._t_plane_cache is None
+                    or self._t_plane_cache[0] is not teacher):
+                self._t_plane_cache = (teacher, self.plane_of(0, teacher))
+            t_arg = self._t_plane_cache[1]
         if banked:
             bank = (bank[0], bank[1],
                     torch.as_tensor(bank[2], dtype=torch.float32

@@ -1,7 +1,7 @@
-"""Member-axis sharding of the FL dispatch path over a
-``launch.mesh`` mesh, the torch counterpart of the member-axis half of
-``repro.launch.sharding`` (the tensor-parallel rules wait for ROADMAP item
-11b).
+"""Sharding of the FL dispatch path over a ``launch.mesh`` mesh, the
+torch counterpart of ``repro.launch.sharding``'s member-axis half and of its
+tensor-parallel name rules (``tp_specs``; the launch stack's ``param_specs``,
+``batch_specs``, ``cache_specs`` and ``to_named`` wait for ROADMAP item 12).
 
 A spec says which tensor dim each mesh axis splits: ``{"data": 0}`` (the
 member axis: JAX's ``member_specs``) splits dim 0 into ``data``-size
@@ -19,6 +19,61 @@ these are no-ops and start no collective.
 from __future__ import annotations
 
 from repro_torch.launch.mesh import axis_size
+
+# leaf name -> dim to split along ``model`` (negative = from the end, so the
+# stacked superblock axis in front does not count); ``embed`` / ``lm_head``
+# split the vocabulary (dim 0)
+PARAM_DIM = {
+    "embed": 0, "lm_head": 0,
+    "wq": -1, "wk": -1, "wv": -1, "w_up": -1, "up": -1,
+    "up_g": -1, "up_v": -1, "in_proj": -1, "x_proj": -1, "wx": -1,
+    "conv_w": -1, "conv_b": -1, "D": -1, "dt_bias": -1, "skip": -1,
+    "dt_proj": -1, "w_gate": -1,
+    "wo": -2, "w_down": -2, "down": -2, "out_proj": -2, "A_log": -2,
+}
+# MoE expert tensors can split the EXPERT axis instead (expert parallelism)
+MOE_LEAVES = {"w_gate", "w_up", "w_down"}
+
+
+def _leaf_name(path) -> str:
+    """The last dict key on a leaf's path (list indices skipped)."""
+    for p in reversed(path):
+        if isinstance(p, str):
+            return p
+    return ""
+
+
+def _map_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def tp_specs(cfg, params, msize: int, axis: str = "model"):
+    """Megatron name rules for a model-axis size (no mesh): each leaf's
+    spec, ``{axis: dim}`` for a leaf split along ``dim`` or ``{}`` for a
+    replicated one.  A dim that does not divide ``msize`` is replicated.
+    ``params``: a pytree of tensors (or anything with ``.shape``)."""
+
+    def spec(path, leaf):
+        name = _leaf_name(path)
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        is_moe = (name in MOE_LEAVES and cfg.n_experts > 0
+                  and nd >= 3 and shape[nd - 3] == cfg.n_experts)
+        if is_moe and cfg.moe_shard == "ep" and shape[nd - 3] % msize == 0:
+            return {axis: nd - 3}
+        if name in PARAM_DIM:
+            dim = PARAM_DIM[name]
+            dim = dim if dim >= 0 else nd + dim
+            if 0 <= dim < nd and shape[dim] % msize == 0:
+                return {axis: dim}
+        return {}
+
+    return _map_with_path(spec, params)
 
 
 def _rank_on(mesh, axis: str) -> int:

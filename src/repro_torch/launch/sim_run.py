@@ -42,12 +42,15 @@ ranks itself and rendezvouses them through a file; under
 ``cuda:(r % device_count)``, or the CPU with ``--device cpu``, over gloo
 on the CPU, nccl when every rank has a card of its own, else gloo (NCCL
 refuses two ranks on one card).  Rank 0 writes every output and prints; the
-other ranks are silent.  A 2D mesh needs ``--no-tp-forward``: the
-tensor-parallel member forward is ROADMAP item 11b.
+other ranks are silent.  On a 2D mesh the member forward runs
+tensor-parallel over the model axis (``--tp-forward``, the default, as in
+JAX: each rank trains its slice of every member model on a TP-layout
+plane); ``--no-tp-forward`` gathers the plane's columns each round for a
+replicated forward.
 
   PYTHONPATH=src python -m repro_torch.launch.sim_run --trace mixed \
-      --mar-policy buffer --rounds-per-dispatch 4 --mesh-shape 4x2 \
-      --no-tp-forward --device cpu
+      --mar-policy buffer --rounds-per-dispatch 4 --mesh-shape 2x2 \
+      --device cpu
 
 The flags are the JAX launcher's, plus ``--device`` (``cuda`` by default;
 without a card it raises; on the fleet path it is where the setup's Lloyd
@@ -270,7 +273,9 @@ def run(args, mesh=None, rank: int = 0, device=None):
     if eng.mesh is not None:
         plane_txt = (f", plane columns sharded {eng._mesh_m}-way"
                      if eng._mesh_m > 1 else "")
-        fwd_txt = ", replicated member forward" if eng._mesh_m > 1 else ""
+        fwd_txt = ("" if eng._mesh_m == 1 else
+                   ", tensor-parallel member forward" if eng._tp else
+                   ", replicated member forward")
         backend = torch.distributed.get_backend()
         print(f"mesh={mesh_lib.mesh_shape(eng.mesh)} (member axis sharded "
               f"{eng._mesh_n}-way{plane_txt}{fwd_txt}) backend={backend}")
@@ -317,11 +322,6 @@ def _check_mesh_flags(args) -> tuple:
     if args.rounds_per_dispatch <= 1:
         raise SystemExit("--mesh-shape shards the dispatch path: it needs "
                          "--rounds-per-dispatch >1")
-    if m > 1 and args.tp_forward:
-        raise SystemExit("--tp-forward on a 2D mesh (the tensor-parallel "
-                         "member forward) is not ported yet: it waits for "
-                         "ROADMAP item 11b; --no-tp-forward gathers the "
-                         "plane's columns for a replicated forward")
     return n, m
 
 
@@ -494,9 +494,10 @@ def main(argv=None):
     ap.add_argument("--tp-forward", default=True,
                     action=argparse.BooleanOptionalAction,
                     help="on a 2D mesh, run the member forward tensor-"
-                         "parallel over the model axis (ROADMAP item 11b, "
-                         "not ported); --no-tp-forward gathers the plane's "
-                         "columns for a replicated forward")
+                         "parallel over the model axis (each rank trains "
+                         "its slice of the model on a TP-layout plane); "
+                         "--no-tp-forward gathers the plane's columns for "
+                         "a replicated forward")
     args = ap.parse_args(argv)
     if args.mesh_shape and not args.fleet_size:
         return run_mesh(args)

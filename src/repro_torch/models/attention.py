@@ -21,6 +21,15 @@ for ``local=True``).  Decode takes the plain ``_sdpa`` route whatever
 ``attn_impl`` says, as JAX's does.  Where JAX writes the new key and value
 with ``dynamic_update_slice``, ``attn_decode`` returns a new cache tensor
 (``index_copy``), so a caller's old cache is never written.
+
+Under a tensor-parallel context (``models.tp``) ``attn_forward`` runs this
+rank's slice: column-parallel ``wq`` / ``wk`` / ``wv`` give local heads,
+RoPE and qk-norm run per local head, the flash kernel (or the plain route)
+runs on the local heads, and the row-parallel ``wo`` ends in one
+``reduce_from_tp``.  Where a split does not fall on heads (a demoted leaf,
+or a ``wk`` split that cuts through a head), the cut tensor is gathered
+over the model axis: K/V whole before the local query heads pick theirs,
+or, when the query heads do not split, the attention whole on every rank.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash import ops as flash_ops
+from repro_torch.models import tp
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        rms_head_norm, softcap)
 
@@ -48,18 +58,26 @@ def _project_qkv(p, cfg: ModelConfig, x, positions):
     q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
     k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q, k = _norm_rope(cfg, q, k, positions, p.get("q_norm"), p.get("k_norm"))
+    return q, k, v
+
+
+def _norm_rope(cfg: ModelConfig, q, k, positions, q_norm, k_norm):
+    """qk-norm and (M-)RoPE, per head: q (..., S, H, hd), k (..., S, KV,
+    hd) with any number of heads."""
+    x_dim = q.dim() - 1
     if cfg.qk_norm:
-        q = rms_head_norm(p["q_norm"], q)
-        k = rms_head_norm(p["k_norm"], k)
+        q = rms_head_norm(q_norm, q)
+        k = rms_head_norm(k_norm, k)
     if cfg.mrope_sections:
-        if positions.dim() == x.dim() - 1:        # (B,S) -> identical streams
+        if positions.dim() == x_dim - 1:          # (B,S) -> identical streams
             positions = positions[None].expand(3, *positions.shape)
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     elif cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return q, k
 
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask):
@@ -129,24 +147,76 @@ def _causal_mask(S: int, window: int, device=None):
     return m[None]  # (1,S,T)
 
 
+def _attend(cfg: ModelConfig, q, k, v, *, window: int, causal: bool):
+    """Self-attention of q (B, S, H, hd) over k, v (B, S, KV, hd) by
+    ``cfg.attn_impl``'s route."""
+    S = q.shape[1]
+    if cfg.attn_impl == "pallas" and not cfg.mrope_sections and causal:
+        return flash_ops.flash_attention(q, k, v, causal=True, window=window,
+                                         softcap=cfg.attn_softcap)
+    if cfg.attn_impl == "blocked":
+        return _sdpa_blocked(cfg, q, k, v, causal=causal, window=window)
+    if causal:
+        mask = _causal_mask(S, window, q.device)[:, None]        # (1,1,S,T)
+    else:
+        mask = torch.ones((1, 1, S, S), dtype=torch.bool, device=q.device)
+    return _sdpa(cfg, q, k, v, mask)
+
+
+def _local_kv_heads(cfg: ModelConfig, Hl: int, r: int):
+    """The K/V heads rank ``r``'s query heads [r·Hl, (r+1)·Hl) read: a
+    slice when they form whole grouped-query groups in order, else one
+    K/V head per query head (an index list)."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    idx = [(r * Hl + i) // G for i in range(Hl)]
+    n = idx[-1] - idx[0] + 1
+    if Hl % n == 0 and idx == [idx[0] + i // (Hl // n) for i in range(Hl)]:
+        return slice(idx[0], idx[0] + n)
+    return idx
+
+
 def attn_forward(p, cfg: ModelConfig, x, positions, *, local: bool = False,
                  causal: bool = True):
-    B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    """Self-attention of x (B, S, d); under a tensor-parallel context this
+    rank's slice (the module docstring).  With no context nothing splits,
+    every tp operation is an identity, and the last branch is the whole
+    attention."""
     window = cfg.sliding_window if local else 0
-    if cfg.attn_impl == "pallas" and not cfg.mrope_sections and causal:
-        out = flash_ops.flash_attention(q, k, v, causal=True, window=window,
-                                        softcap=cfg.attn_softcap)
-    elif cfg.attn_impl == "blocked":
-        out = _sdpa_blocked(cfg, q, k, v, causal=causal, window=window)
-    else:
-        if causal:
-            mask = _causal_mask(S, window, x.device)[:, None]    # (1,1,S,T)
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m, r = tp.tp_size(), tp.tp_rank()
+    xd = tp.copy_to_tp(x)
+    q_split, kv_split = tp.splits(cfg.q_dim), tp.splits(cfg.kv_dim)
+    q = (xd if q_split else x) @ p["wq"]
+    k = (xd if kv_split else x) @ p["wk"]
+    v = (xd if kv_split else x) @ p["wv"]
+    qn, kn = p.get("q_norm"), p.get("k_norm")
+    if q_split and H % m == 0:
+        # local query heads; the norms' scales enter per-rank computation
+        Hl = H // m
+        q = q.reshape(B, S, Hl, hd)
+        if kv_split and KV % m == 0:
+            k = k.reshape(B, S, KV // m, hd)
+            v = v.reshape(B, S, KV // m, hd)
         else:
-            mask = torch.ones((1, 1, S, S), dtype=torch.bool,
-                              device=x.device)
-        out = _sdpa(cfg, q, k, v, mask)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+            sel = _local_kv_heads(cfg, Hl, r)
+            k, v = (tp.copy_to_tp(tp.gather_from_tp(t) if kv_split else t)
+                    .reshape(B, S, KV, hd)[:, :, sel] for t in (k, v))
+        if cfg.qk_norm:
+            qn, kn = tp.copy_to_tp(qn), tp.copy_to_tp(kn)
+        q, k = _norm_rope(cfg, q, k, positions, qn, kn)
+        out = _attend(cfg, q, k, v, window=window, causal=causal)
+        return tp.reduce_from_tp(out.reshape(B, S, Hl * hd) @ p["wo"])
+    # the query heads do not split: the attention runs whole on every rank
+    q, k, v = ((tp.gather_from_tp(t) if s else t)
+               for t, s in ((q, q_split), (k, kv_split), (v, kv_split)))
+    q, k = _norm_rope(cfg, q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
+                      positions, qn, kn)
+    out = _attend(cfg, q, k, v.reshape(B, S, KV, hd), window=window,
+                  causal=causal).reshape(B, S, cfg.q_dim)
+    if q_split:                         # wo's rows split, cutting heads
+        return tp.reduce_from_tp(tp.scatter_to_tp(out) @ p["wo"])
+    return out @ p["wo"]
 
 
 def init_cross_attn(generator, cfg: ModelConfig, dtype):

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tp
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,9 +124,18 @@ def init_mlp(generator, d_model: int, d_ff: int, dtype):
     }
 
 
-def apply_mlp(p, x):
+def apply_mlp(p, x, d_ff: int | None = None):
+    """The gated MLP.  ``d_ff`` (the full hidden width) says whether, under
+    a tensor-parallel context (``models.tp``), the leaves are this rank's
+    slices: column-parallel ``w_gate`` / ``w_up`` and row-parallel
+    ``w_down``, the input entering by ``copy_to_tp`` and the output summed
+    by ``reduce_from_tp``."""
+    split = d_ff is not None and tp.splits(d_ff)
+    if split:
+        x = tp.copy_to_tp(x)
     g = F.silu(x @ p["w_gate"])
-    return (g * (x @ p["w_up"])) @ p["w_down"]
+    y = (g * (x @ p["w_up"])) @ p["w_down"]
+    return tp.reduce_from_tp(y) if split else y
 
 
 def softcap(x, cap: float):

@@ -8,21 +8,22 @@ JAX package, so the pytree and its flat plane are the same in both
 packages.  JAX runs the depth under ``lax.scan``; here a Python loop
 indexes the stacked leaves, and ``decode_step`` restacks each position's
 new cache.  ``remat=True`` recomputes each superblock's body in the
-backward pass (``torch.utils.checkpoint``, as JAX's ``jax.checkpoint`` of
-the scan body) under autograd; under ``torch.func``'s transforms, which
-take no saved-tensor hooks, it raises ``NotImplementedError`` naming the
-cause (ROADMAP C6) rather than dropping the recompute.
+backward pass, as JAX's ``jax.checkpoint`` of the scan body does, through
+``Recompute``: an ``autograd.Function`` that keeps only the superblock's
+inputs and recomputes through ``torch.func.vjp``, so one implementation
+serves plain autograd (``launch/train.py``) and the FL engine's vmapped
+``torch.func`` member step (which takes no saved-tensor hooks, so
+``torch.utils.checkpoint`` cannot run there).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba, xlstm_blocks as xb
+from repro_torch.models import mamba, tp, xlstm_blocks as xb
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        init_mlp, init_norm, softcap,
                                        torch_dtype)
@@ -89,7 +90,7 @@ def _ffn(cfg: ModelConfig, pos: int, p, h):
         if cfg.ffn_kind(pos) == "moe":
             r, aux = apply_moe(p["ffn"], cfg, x)
         else:
-            r = apply_mlp(p["ffn"], x)
+            r = apply_mlp(p["ffn"], x, cfg.d_ff)
         h = h + r * cfg.residual_scale
     return h, aux
 
@@ -109,12 +110,29 @@ def _apply_block(cfg: ModelConfig, pos: int, p, h, positions):
     return _ffn(cfg, pos, p, h + r * cfg.residual_scale)
 
 
+def vocab_split(cfg: ModelConfig) -> bool:
+    """Whether, under a tensor-parallel context, ``embed`` / ``lm_head``
+    hold this rank's rows of the vocabulary (and the logits its slice)."""
+    return tp.splits(cfg.padded_vocab)
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    return F.embedding(tokens, params["embed"]) * cfg.embed_scale
+    if not vocab_split(cfg):
+        return F.embedding(tokens, params["embed"]) * cfg.embed_scale
+    # vocab-parallel lookup: this rank's rows, zero elsewhere, summed
+    v = params["embed"].shape[0]
+    t = tokens - tp.tp_rank() * v
+    inside = (t >= 0) & (t < v)
+    e = F.embedding(t.clamp(0, v - 1), params["embed"]) * inside[..., None]
+    return tp.reduce_from_tp(e) * cfg.embed_scale
 
 
 def _logits(cfg: ModelConfig, params, h):
+    """Logits (..., V_pad), or this rank's vocabulary slice of them under
+    a tensor-parallel context (``vocab_split``)."""
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    if vocab_split(cfg):
+        h = tp.copy_to_tp(h)
     logits = (h @ head.T.to(h.dtype)) * cfg.logit_scale
     return softcap(logits, cfg.final_softcap)
 
@@ -126,6 +144,9 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     tokens: (B, S_txt) int or None; embeds: (B, S_front, d) modality-
     frontend embeddings prepended to the token embeddings (VLM/audio stub).
     Returns (logits (B,S,V_pad), moe_aux), aux summed over every MoE block.
+    Under a tensor-parallel context (``models.tp``) the forward runs this
+    rank's slice of every split leaf, and the logits are its vocabulary
+    slice when ``vocab_split``.
     """
     _check_ported(cfg)
     parts = []
@@ -138,7 +159,7 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     if positions is None:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
 
-    def sb_body(h, sbp):
+    def sb_body(h, sbp, positions):
         aux_sb = torch.zeros((), dtype=torch.float32, device=h.device)
         for j in range(cfg.period):
             h, a = _apply_block(cfg, j, sbp[f"p{j}"], h, positions)
@@ -150,9 +171,9 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
         sbp = {k: tree_map(lambda x: x[sb], v)
                for k, v in params["blocks"].items()}
         if cfg.remat:
-            h, aux_sb = _remat(sb_body, h, sbp)
+            h, aux_sb = _remat(sb_body, h, sbp, positions)
         else:
-            h, aux_sb = sb_body(h, sbp)
+            h, aux_sb = sb_body(h, sbp, positions)
         aux = aux + aux_sb
     h = apply_norm(cfg, params["final_norm"], h)
     if return_hidden:
@@ -160,21 +181,52 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     return _logits(cfg, params, h), aux
 
 
-def _remat(fn, h, sbp):
-    """``fn(h, sbp)`` with its activations recomputed in the backward pass
-    instead of kept.  ``torch.func``'s grad transforms refuse the
-    saved-tensor hooks this needs; that refusal is raised as
-    ``NotImplementedError`` with its cause."""
-    try:
-        return checkpoint(fn, h, sbp, use_reentrant=False)
-    except RuntimeError as e:
-        if "saved tensor hooks" not in str(e):
-            raise
-        raise NotImplementedError(
-            "remat=True recomputes each superblock through "
-            "torch.utils.checkpoint, and torch.func's grad transforms (the "
-            "FL engine's vmapped member step) take no saved-tensor hooks; "
-            "train with remat=False there (ROADMAP C6)") from e
+class Recompute(torch.autograd.Function):
+    """``fn(*args)`` (a tuple of tensors) whose activations are recomputed
+    in the backward pass instead of kept: the forward runs ``fn`` without
+    recording, keeps only ``args``, and the backward runs ``fn`` again
+    under ``torch.func.vjp`` for the gradients of the floating-point
+    ``args`` (integer ones, such as positions, get none).  ``torch.func``
+    takes it inside ``vmap(grad(...))`` through the generated vmap rule,
+    where ``torch.utils.checkpoint``'s saved-tensor hooks are refused."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(fn, *args):
+        return tuple(fn(*args))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.fn = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        args = ctx.saved_tensors
+        diff = [i for i, a in enumerate(args) if a.is_floating_point()]
+
+        def f(*xs):
+            full = list(args)
+            for i, x in zip(diff, xs):
+                full[i] = x
+            return tuple(ctx.fn(*full))
+
+        _, vjp = torch.func.vjp(f, *(args[i] for i in diff))
+        out = [None] * len(args)
+        for i, g in zip(diff, vjp(grads)):
+            out[i] = g
+        return (None, *out)
+
+
+def _remat(fn, h, sbp, positions):
+    """``fn(h, sbp)`` -> (h, aux) through ``Recompute``, the superblock's
+    parameter pytree passed as its flat leaves."""
+    leaves = tree_leaves(sbp)
+
+    def flat_fn(h, positions, *xs):
+        return fn(h, tree_unflatten(sbp, list(xs)), positions)
+
+    return Recompute.apply(flat_fn, h, positions, *leaves)
 
 
 # ------------------------------------------------------------------ decode

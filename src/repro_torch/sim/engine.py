@@ -471,11 +471,11 @@ class HeterogeneitySim:
                            obs=self.obs if self.obs.on else None)
         self.report = report
         buffered = fl.cfg.aggregation == "buffered"
-        # which member forward the blocks run: "gather" on a 2D mesh (the
-        # plane's columns gathered each round for a replicated forward),
-        # else "replicated" ("tp", JAX's tensor-parallel forward, is ROADMAP
-        # item 11b)
-        fwd = "gather" if getattr(fl, "_mesh_m", 1) > 1 else "replicated"
+        # which member forward the blocks run: "tp" (tensor-parallel over
+        # the model axis) or "gather" (the plane's columns gathered each
+        # round for a replicated forward) on a 2D mesh, else "replicated"
+        fwd = ("tp" if getattr(fl, "_tp", False) else
+               "gather" if getattr(fl, "_mesh_m", 1) > 1 else "replicated")
         with tr.span("sim.run", cat="engine", mode="dispatch",
                      member_forward=fwd, rounds=cfg.rounds):
             with tr.span("init_params", cat="engine"):

@@ -17,6 +17,7 @@ import torch.multiprocessing as mp
 from repro_torch import interop
 from repro_torch.core import aggregation, server as t_srv
 from repro_torch.core.families import mlp_family
+from repro_torch.core.plane import make_plane_spec
 from repro_torch.core.resources import TABLE_III, participants_from_matrix
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import make_classification, train_test_split
@@ -29,14 +30,26 @@ MESHES = ("8", "4x2")
 def run_world(fn, tmp_path, *args, world: int = WORLD):
     """[fn(rank, *args) for every rank], each rank a process in one gloo
     world."""
+    return start_world(fn, tmp_path, *args, world=world)()
+
+
+def start_world(fn, tmp_path, *args, world: int = WORLD):
+    """``run_world`` without waiting: starts the ranks and returns a
+    function that waits for them and returns their results."""
     tmp_path = str(tmp_path)
-    mp.spawn(_entry, args=(fn, world, f"file://{tmp_path}/rendezvous",
-                           tmp_path, args), nprocs=world)
-    out = []
-    for r in range(world):
-        with open(os.path.join(tmp_path, f"rank{r}.pkl"), "rb") as f:
-            out.append(pickle.load(f))
-    return out
+    ctx = mp.spawn(_entry, args=(fn, world, f"file://{tmp_path}/rendezvous",
+                                 tmp_path, args), nprocs=world, join=False)
+
+    def results():
+        while not ctx.join():
+            pass
+        out = []
+        for r in range(world):
+            with open(os.path.join(tmp_path, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+    return results
 
 
 def _entry(rank, fn, world, init_method, out_dir, args):
@@ -228,12 +241,15 @@ def fedrac_rank(rank, init_trees, draws, inputs):
             res["d_pad"] = {lvl: eng.plane_spec(lvl).d_pad
                             for lvl in eng.assignment.members}
             out[(shape, kind)] = res
-        # the tensor-parallel forward on a 2D mesh waits for item 11b
+        # the tensor-parallel forward on a 2D mesh: train() on TP-layout
+        # planes, the results in the unsharded layout
         if mesh_lib.axis_size(mesh, "model") > 1:
-            try:
-                make_engine(InjectedFedRAC, "sync", mesh=mesh,
-                            tp_forward=True)
-                out["tp_refusal"] = None
-            except NotImplementedError as e:
-                out["tp_refusal"] = str(e)
+            eng, test = make_engine(InjectedFedRAC, "sync", mesh=mesh,
+                                    tp_forward=True)
+            res = eng.train(test)
+            out["tp"] = {("plane", lvl): make_plane_spec(p).to_plane(p)[
+                :eng.plane_spec(lvl).d].numpy()
+                for lvl, p in eng.cluster_params.items()}
+            out["tp"]["history"] = res.history
+            out["tp_forward"] = eng._tp
     return out

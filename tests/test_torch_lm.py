@@ -274,12 +274,48 @@ def test_lm_family_loss_and_logits_match_jax(level):
 
 
 def test_remat_raises():
-    """remat=True builds and trains under autograd (test_torch_train.py);
-    under torch.func's grad, which takes no saved-tensor hooks, it raises
-    naming the cause instead of dropping the recompute."""
-    cfg = get_config("olmo-1b", smoke=True).replace(remat=True)
+    """remat=True under torch.func (the name is kept from when it raised
+    there, ROADMAP C6): ``Recompute`` gives the LM's ``torch.func.grad``
+    bit-equal to remat=False's, and a dispatch block of the FL engine with
+    remat=True (its vmapped member step, attention on the flash route's
+    plain version) equals JAX's remat=True block (``jax.checkpoint`` of the
+    scan body, plain attention) on JAX's plane and batch draws."""
+    cfg = get_config("olmo-1b", smoke=True)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.tensor(_tokens(cfg, B=2, S=8, seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP C6"):
-        torch.func.grad(lambda p: transformer.next_token_loss(
-            cfg, p, toks)[0])(params)
+    grads = [torch.func.grad(lambda p: transformer.next_token_loss(
+        cfg.replace(remat=remat), p, toks)[0])(params)
+        for remat in (False, True)]
+    for a, b in zip(*map(tree_leaves, grads)):
+        assert torch.equal(a, b)
+
+    from repro.core import server as j_srv
+    from repro.core.resources import participants_from_matrix as j_parts
+    from _torch_mesh_common import InjectedFedRAC
+    from _torch_mesh_jax import RecordingBridgedFedRAC
+    from _torch_tp_common import CFG, LM, TokenHooks, lm_federation
+    from repro.configs.base import ModelConfig as JModelConfig
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import server as t_srv
+    from repro_torch.core.resources import participants_from_matrix
+
+    class JTokens(j_srv.FedRAC):
+        def _batch_from_gathered(self, g):
+            return {"tokens": g["tokens"], "y": g["tokens"][:, :, -1]}
+
+    V, n_data, cd, _ = lm_federation()
+    kw = dict(CFG, class_balanced=False)
+    jf = j_lm_family(JModelConfig(**dict(LM, attn_impl="jnp", remat=True)))
+    j = JTokens(j_parts(V, n_data=n_data), cd, jf,
+                j_srv.FLConfig(**kw, donate_plane=False), classes=64).setup()
+    InjectedFedRAC.draws = {}
+    t = type("Tokens", (TokenHooks, RecordingBridgedFedRAC), {})(
+        participants_from_matrix(V, n_data=n_data), cd,
+        lm_family(ModelConfig(**dict(LM, remat=True))), t_srv.FLConfig(**kw),
+        classes=64, device="cpu").setup()
+    members = j.assignment.members[0]
+    plane = np.asarray(j.plane_of(0, jf.init(jax.random.PRNGKey(0), 0)))
+    oj = j.dispatch_rounds(0, members, jnp.asarray(plane), 0, 2)
+    ot = t.dispatch_rounds(0, members, torch.tensor(plane), 0, 2)
+    _close(ot.losses, oj.losses)
+    _close(ot.plane, oj.plane)

@@ -12,22 +12,23 @@ JAX's batch-index draws, recorded from the unsharded run (the
 ``StreamBridgedFedRAC`` trick).  JAX's own mesh path is not the oracle: it
 fails under JAX 0.9.0 (ROADMAP C2).  Tolerance rtol 2e-4 / atol 1e-5;
 accuracy curves within one test sample.  ``sim_run --mesh-shape 4`` is
-held to the unsharded launcher's report, and a 2D mesh refuses the
-tensor-parallel forward, naming ROADMAP item 11b.
+held to the unsharded launcher's report, and the 4×2 mesh with the
+tensor-parallel forward (``tp_forward=True``) to the unsharded run.
 """
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from repro.core import server as j_srv
 from repro.core.families import mlp_family as j_mlp_family
 from repro.core.resources import participants_from_matrix as j_parts
-from repro.data import device_sampler as j_ds
 
 from _torch_mesh_common import (CFG, MESHES, InjectedFedRAC, federation,
                                 fedrac_rank, make_engine, run_world,
                                 scenario)
+from _torch_mesh_jax import RecordingBridgedFedRAC
+from _torch_mesh_jax import jax_inputs as _inputs
+from _torch_mesh_jax import jax_scenario as _jax_scenario
 from _torch_sim_common import host_rows
 from _torch_threads import one_torch_thread  # noqa: F401
 from repro_torch.launch import mesh as t_mesh
@@ -44,24 +45,6 @@ def _close(a, b):
                                atol=ATOL)
 
 
-class RecordingBridgedFedRAC(InjectedFedRAC):
-    """The unsharded port run: JAX's draws, recorded for the mesh ranks."""
-
-    def _draw_indices(self, pack, r, balanced):
-        key = j_ds.round_key(self.cfg.seed, r)
-        S, B = self.cfg.steps_per_round, self.cfg.local_batch
-        if balanced:
-            idx = j_ds.balanced_indices(key, S, B,
-                                        jnp.asarray(pack["tables"]),
-                                        jnp.asarray(pack["counts"]))
-        else:
-            idx = j_ds.uniform_indices(key, S, B,
-                                       jnp.asarray(pack["n"], jnp.int32))
-        idx = np.asarray(idx)
-        self.draws[(pack["level"], r)] = idx
-        return idx
-
-
 def _jax_engine(kind):
     V, n_data, cd, test = federation()
     j = j_srv.FedRAC(j_parts(V, n_data=n_data), cd, j_mlp_family(),
@@ -69,73 +52,6 @@ def _jax_engine(kind):
                                            donate_plane=False)),
                      classes=10).setup()
     return j, test
-
-
-def _inputs(j):
-    """The banked blocks' inputs (true lengths): each level's plane from a
-    JAX draw, bank rows near it (as banked updates lie), bank and member
-    weights, and the slave's two-round teacher stack."""
-    inputs = {}
-    for lvl in (0, 1):
-        members = j.assignment.members[lvl]
-        C = len(members)
-        spec = j.plane_spec(lvl)
-        plane = np.asarray(j.plane_of(lvl, j.family.init(
-            jax.random.PRNGKey(11 + lvl), lvl)))[:spec.d]
-        noise = np.random.default_rng(5 + lvl).standard_normal((C, spec.d))
-        rows = (plane[None] * (1.0 + 0.02 * noise)).astype(np.float32)
-        rows[2:] = 0.0
-        bank_w = np.zeros(C, np.float32)
-        bank_w[:2] = [0.9, 0.36]
-        gain = np.zeros(C, np.float32)
-        gain[0] = 0.6 * j.assignment.n_eff[members[0]]
-        weights = np.array([j.assignment.n_eff[p] for p in members],
-                           np.float32)
-        weights[0] = 0.0
-        inputs.update({("plane", lvl): plane, ("rows", lvl): rows,
-                       ("bank_w", lvl): bank_w, ("gain", lvl): gain,
-                       ("weights", lvl): weights})
-    inputs["teacher"] = np.stack([np.asarray(j.plane_of(0, j.family.init(
-        jax.random.PRNGKey(k), 0)))[:j.plane_spec(0).d] for k in (42, 43)])
-    return inputs
-
-
-def _jax_scenario(j, test, inputs, kind):
-    """``scenario`` on the JAX engine (single device, no mesh)."""
-    out = {}
-    if kind == "sync":
-        res = j.train({k: jnp.asarray(v) for k, v in test.items()})
-        for lvl, p in j.cluster_params.items():
-            out[("plane", lvl)] = np.asarray(
-                j.plane_of(lvl, p))[:j.plane_spec(lvl).d]
-        out["history"] = res.history
-        return out
-    for lvl in (0, 1):
-        members = j.assignment.members[lvl]
-        C, cap = len(members), j._capacity(len(members))
-        spec = j.plane_spec(lvl)
-
-        def pad(x, shape):
-            o = np.zeros(shape, np.float32)
-            o[tuple(slice(0, s) for s in np.shape(x))] = x
-            return jnp.asarray(o)
-        kw = {}
-        if lvl:
-            kw["teacher_planes"] = pad(inputs["teacher"],
-                                       (2, j.plane_spec(0).d_pad))
-        o = j.dispatch_rounds(
-            lvl, members, pad(inputs["plane", lvl], (spec.d_pad,)), 0, 2,
-            weights=inputs["weights", lvl],
-            bank=(pad(inputs["rows", lvl], (cap, spec.d_pad)),
-                  pad(inputs["bank_w", lvl], (cap,)),
-                  pad(inputs["gain", lvl], (cap,))),
-            want_history=True, **kw)
-        out[("plane", lvl)] = np.asarray(o.plane)[:spec.d]
-        out[("losses", lvl)] = np.asarray(o.losses)
-        out[("history", lvl)] = np.asarray(o.history)[:, :spec.d]
-        out[("bank", lvl)] = np.asarray(o.bank[0])[:C, :spec.d]
-        out[("bank_w", lvl)] = np.asarray(o.bank[1])[:C]
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -220,9 +136,14 @@ def test_fedagg_runs_on_each_rank_block(runs, mesh, kind):
 
 
 def test_2d_mesh_refuses_the_tp_forward(runs):
-    _, ranks, _ = runs
+    """The 4×2 mesh with ``tp_forward=True`` (JAX's default), once
+    refused, now trains on TP-layout planes with the member forward split
+    over ``model``, and matches the unsharded run (the name is kept from
+    when the test held the refusal)."""
+    ref, ranks, n_test = runs
     for r in ranks:
-        assert "ROADMAP item 11b" in r["tp_refusal"]
+        assert r["tp_forward"]
+        _assert_results_match(r["tp"], ref["sync"][1], n_test)
 
 
 _SIM_ARGS = ["--trace", "mixed", "--mar-policy", "buffer",

@@ -1,0 +1,276 @@
+"""Port parity for the tensor-parallel member forward (``tp_forward=True``
+on a 2D mesh): one spawn of 4 gloo ranks holds the meshes 1x2 (two
+replicas side by side), 2x2 and 1x4 (``_torch_tp_common``).
+
+* Megatron's four operations (``models.tp``) and the max over the ranks,
+  under ``vmap(grad)`` over members, against the unsharded gradients.
+* The dispatch path for the MLP, the CNN and a small dense LM (GQA with
+  qk-norm on the flash route; at a model axis of 4 its ``wk`` split cuts
+  through a head), each with "sync" (``train()``: FedAvg, then the slave
+  under a fixed KD teacher) and "buffered" (a banked block per level, the
+  slave on a per-round teacher stack), and a CNN whose odd widths demote
+  leaves on 1x2.  Every run of a family held to JAX here starts from
+  JAX's parameter draw and takes JAX's batch-index draws (the others from
+  the port's own, recorded from the unsharded run).  Each mesh run is held at rtol 2e-4 / atol
+  1e-5 to the port's unsharded engine, and that engine to JAX's
+  single-device path (``JAX_RUNS``; the LM's JAX side on its plain
+  ``jnp`` attention, the port's on the flash route's plain version);
+  accuracy curves within one test sample.
+* Every whole (replicated) leaf's copies in a TP plane are bit-equal
+  across the chunks; fedagg runs on each rank's (C/n, d_loc) block as
+  often as the unsharded engine runs it; no plane column is gathered over
+  ``model`` inside a block (only the block's outputs at its end).
+* The small LM with remat=True, and with query groups that straddle the
+  ranks (2) or query heads that do not split (4): each rank's member
+  gradients under the TP forward equal its chunk of the unsharded ones.
+* The MoE family on a 2D mesh refuses the TP forward naming ROADMAP item
+  11c, and runs with ``tp_forward=False``.
+"""
+import jax
+import numpy as np
+from jax.flatten_util import ravel_pytree
+import pytest
+import torch
+
+from repro.configs.base import ModelConfig as JModelConfig
+from repro.core import families as j_families
+from repro.core import server as j_srv
+from repro.core.resources import participants_from_matrix as j_parts
+
+from _torch_mesh_common import InjectedFedRAC, federation, start_world
+from _torch_mesh_jax import RecordingBridgedFedRAC, jax_inputs, jax_scenario
+from _torch_threads import one_torch_thread  # noqa: F401
+from _torch_tp_common import (CFG, FAMILIES, KINDS, LM, LM_GRAD_CASES,
+                              MESHES, SEED, RecordingPortFedRAC, engine_cls,
+                              lm_federation, lm_grad_inputs, lm_member_grads,
+                              make_engine, op_inputs, op_loss, scenario,
+                              tp_rank)
+from repro_torch import interop
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.plane import make_tp_plane_spec
+from repro_torch.models.attention import _local_kv_heads
+
+jax.config.update("jax_platform_name", "cpu")
+RTOL, ATOL = 2e-4, 1e-5
+# the (family, kind) runs whose unsharded port run is held to JAX's here:
+# the LM's.  The unsharded engine is held to JAX's on the MLP in
+# test_torch_mesh_fedrac.py and on the CNN in test_torch_fedrac.py and
+# test_torch_sim_dispatch.py, so the CNN and MLP runs here, held to the
+# unsharded port only, take the port's own draws
+JAX_RUNS = (("lm", "sync"), ("lm", "buffered"))
+
+
+def _kinds(name):
+    return ("sync",) if name == "cnn-odd" else KINDS
+
+
+def _close(a, b):
+    np.testing.assert_allclose(np.asarray(a, np.float32),
+                               np.asarray(b, np.float32), rtol=RTOL,
+                               atol=ATOL)
+
+
+class JTokenFedRAC(j_srv.FedRAC):
+    def _batch_from_gathered(self, g):
+        return {"tokens": g["tokens"], "y": g["tokens"][:, :, -1]}
+
+    def evaluate(self, level, params, test):
+        loss, _ = self.family.loss_and_logits(level, params, test)
+        return -float(loss)
+
+
+def _jax_family(name):
+    if name == "lm":
+        return j_families.lm_family(
+            JModelConfig(**dict(LM, attn_impl="jnp")), 0.5)
+    if name == "mlp":
+        return j_families.mlp_family()
+    return j_families.cnn_family(base_width=0.0625 if name == "cnn" else 0.1)
+
+
+def _jax_engine(name, kind):
+    V, n_data, cd, test = (lm_federation() if name == "lm"
+                           else federation())
+    cls, classes = (JTokenFedRAC, 64) if name == "lm" else (j_srv.FedRAC, 10)
+    cfg = j_srv.FLConfig(**dict(CFG, aggregation=kind, donate_plane=False,
+                                class_balanced=name != "lm"))
+    return cls(j_parts(V, n_data=n_data), cd, _jax_family(name), cfg,
+               classes=classes).setup()
+
+
+class _JaxDraws:
+    """What ``jax_inputs`` reads of a JAX engine: the port engine's
+    assignment (asserted equal to JAX's where both run), JAX's family and
+    its ravel, so the banked inputs need no JAX engine set up."""
+
+    def __init__(self, t, family):
+        self.assignment, self.family, self._t = t.assignment, family, t
+
+    def plane_spec(self, lvl):
+        return self._t.plane_spec(lvl)
+
+    def plane_of(self, lvl, params):
+        return ravel_pytree(params)[0]
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{(family, kind): (JAX result, unsharded port result, unsharded
+    capacities)}, the ranks' results, and the test-set sizes.  The
+    unsharded port runs record JAX's draws; the rank world then runs
+    while JAX's engines run here."""
+    init_trees, draws, inputs, ref, n_test, tests = {}, {}, {}, {}, {}, {}
+    for name in FAMILIES:
+        draws[name] = InjectedFedRAC.draws = {}
+        # JAX's draws where JAX's run is held here, else the port's own
+        jax_side = name in {n for n, _ in JAX_RUNS}
+        for kind in _kinds(name):
+            t, test = make_engine(engine_cls(
+                name, RecordingBridgedFedRAC if jax_side
+                else RecordingPortFedRAC), name, kind)
+            assert all(t.assignment.members[lvl] for lvl in (0, 1))
+            init_trees[name] = InjectedFedRAC.init_trees = {
+                lvl: (jax.tree.map(np.asarray, _jax_family(name).init(
+                    jax.random.PRNGKey(SEED + lvl), lvl)) if jax_side
+                      else interop.params_to_numpy(t.family.init(
+                          torch.Generator().manual_seed(SEED + lvl), lvl)))
+                for lvl in range(t.m)}
+            inputs[name, kind] = (jax_inputs(_JaxDraws(t, _jax_family(name)))
+                                  if kind == "buffered" else {})
+            ref[name, kind] = [None, scenario(t, test, inputs[name, kind],
+                                              kind),
+                               {lvl: t._capacity(len(m))
+                                for lvl, m in t.assignment.members.items()},
+                               t.assignment.members]
+            tests[name] = test
+        n_test[name] = len(next(iter(test.values())))
+    results = start_world(tp_rank, tmp_path_factory.mktemp("tp"), init_trees,
+                          draws, inputs, world=4)
+    for name, kind in JAX_RUNS:
+        j = _jax_engine(name, kind)
+        assert j.assignment.members == ref[name, kind][3]
+        ref[name, kind][0] = jax_scenario(j, tests[name], inputs[name, kind],
+                                          kind)
+    return ref, results(), n_test
+
+
+def _assert_results_match(got, want, n_test, name):
+    for k, v in want.items():
+        if k == "replicas":
+            continue
+        if k == "history":
+            assert got[k].keys() == v.keys()
+            for lvl in v:
+                if name == "lm":               # -loss curves
+                    _close(got[k][lvl], v[lvl])
+                else:                          # accuracies
+                    np.testing.assert_allclose(got[k][lvl], v[lvl], rtol=0,
+                                               atol=1.0 / n_test + 1e-9)
+        else:
+            assert np.shape(got[k]) == np.shape(v), k
+            _close(got[k], v)
+
+
+CASES = [(name, shape, kind) for name, shapes in FAMILIES.items()
+         for shape in shapes for kind in _kinds(name)]
+
+
+@pytest.mark.parametrize("name,shape,kind", CASES)
+def test_tp_forward_matches_unsharded(runs, name, shape, kind):
+    ref, ranks, n_test = runs
+    for r in ranks:
+        _assert_results_match(r[(name, shape, kind)], ref[name, kind][1],
+                              n_test[name], name)
+
+
+@pytest.mark.parametrize("name,kind", JAX_RUNS)
+def test_unsharded_port_matches_jax(runs, name, kind):
+    ref, _, n_test = runs
+    _assert_results_match(ref[name, kind][1], ref[name, kind][0],
+                          n_test[name], name)
+
+
+@pytest.mark.parametrize("name,shape,kind", CASES)
+def test_replicated_copies_stay_bit_equal(runs, name, shape, kind):
+    """Every rank computes the same bits for a whole leaf's gradient, so
+    its copies in the TP plane's chunks never part."""
+    _, ranks, _ = runs
+    for r in ranks:
+        rep = r[(name, shape, kind)]["replicas"]
+        assert rep and all(rep)
+
+
+@pytest.mark.parametrize("name,shape,kind", CASES)
+def test_fedagg_on_each_rank_block_and_no_plane_gather(runs, name, shape,
+                                                       kind):
+    """fedagg runs once a round (twice in a banked round) on each rank's
+    (C/n, d_loc) block; the model axis gathers only the block's outputs
+    at its end (the plane, and the history and bank when asked), never
+    the plane's columns for a round."""
+    ref, ranks, _ = runs
+    n, m = (int(x) for x in shape.split("x"))
+    rounds = CFG["rounds"]
+    for r in ranks:
+        res = r[(name, shape, kind)]
+        want = []
+        for lvl in (0, 1):
+            cap = res["capacity"][lvl]
+            assert cap == -(-ref[name, kind][2][lvl] // n) * n
+            want += ([(cap // n, res["d_loc"][lvl])] * rounds
+                     * (2 if kind == "buffered" else 1))
+        assert res["fedagg"] == want
+        # one block per level, which gathers its plane and history (and,
+        # buffered, its bank)
+        blocks, outputs = 2, 3 if kind == "buffered" else 2
+        assert len(res["model_gathers"]) == blocks * outputs
+
+
+@pytest.mark.parametrize("shape", MESHES)
+def test_tp_ops_match_unsharded_gradients(runs, shape):
+    _, ranks, _ = runs
+    x, w1, w2 = op_inputs()
+    g1, g2 = torch.func.vmap(torch.func.grad(op_loss, argnums=(0, 1)))(
+        w1, w2, x)
+    n, m = (int(v) for v in shape.split("x"))
+    k = w1.shape[-1] // m
+    for rank, res in enumerate(ranks):
+        r = rank % m
+        got1, got2, mx = res[("ops", shape)]
+        _close(got1, g1[..., r * k:(r + 1) * k])
+        _close(got2, g2[:, r * k:(r + 1) * k])
+        np.testing.assert_array_equal(mx, (x + (m - 1)).numpy())
+
+
+@pytest.mark.parametrize("case", LM_GRAD_CASES)
+@pytest.mark.parametrize("shape", MESHES)
+def test_tp_lm_member_grads_match_unsharded(runs, case, shape):
+    """Each rank's member gradients under the TP forward equal its chunk
+    of the unsharded ones.  "remat": ``Recompute`` wraps the split
+    superblock and its collectives.  "heads": 6 query heads over 3 K/V
+    heads; at a model axis of 2 each rank's query groups straddle the K/V
+    heads (gathered, then read by an index list), at 4 the query heads do
+    not split (the attention runs whole, its output sliced for the
+    row-parallel wo)."""
+    m = int(shape.split("x")[1])
+    if case == "heads":
+        cfg = ModelConfig(**dict(LM, **LM_GRAD_CASES[case]))
+        assert cfg.q_dim % m == 0 and cfg.kv_dim % m == 0
+        if m == 2:
+            assert cfg.n_kv_heads % m and all(
+                isinstance(_local_kv_heads(cfg, cfg.n_heads // m, r), list)
+                for r in range(m))
+        else:
+            assert cfg.n_heads % m
+    fam, p, stack, toks = lm_grad_inputs(case)
+    g = lm_member_grads(fam, stack, toks)
+    spec = make_tp_plane_spec(p, fam.param_specs(0, p, m, "model"), msize=m)
+    want = spec.to_plane(g).reshape(2, m, spec.d_loc)
+    for rank, res in enumerate(runs[1]):
+        _close(res[(case, shape)], want[:, rank % m])
+
+
+def test_uncovered_family_refuses_naming_11c(runs):
+    _, ranks, _ = runs
+    for r in ranks:
+        assert "ROADMAP item 11c" in r[("moe", True)]
+        assert r[("moe", False)] is None
