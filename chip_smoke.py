@@ -166,7 +166,27 @@ Phases, each printing one JSON line:
               would each hold lm_main's 46.7 GB), each world's member
               losses against the unsharded run at that count within the
               parity tolerance; per-rank peak memory, seconds and
-              collective bytes per round for TP and for the gather path.
+              collective bytes per round for TP and for the gather path;
+  22. tp_families the tensor-parallel forward of the other families, each
+              world two rank processes over gloo: (a) moe_main's
+              federation (granite-moe at full width, 2 of 24 layers,
+              capacity dispatch, flash) on 1x2, held as (b) of phase 21
+              holds lm_main's (member losses against moe_main's records
+              within the parity tolerance or 16 times a one-ulp nudge's
+              move, launches as the code implies, whole-leaf copies
+              equal), each rank's peak below moe_main's, and the routers'
+              top-k on the master's first batch under TP equal to the
+              unsharded forward's but at near-ties; (b) xlstm-350m at
+              full width (6 of 24 layers, chunkwise mLSTM) on the same
+              federation, unsharded here, then on 1x2, held alike; (c)
+              jamba's Mamba mixer and MoE FFN at full width at module
+              level on 1x2: forward and per-member gradients under
+              ``vmap(grad)`` against the unsharded module within the
+              parity tolerance.  fedagg at the granite ranks' blocks and
+              flash at their local-head GQA shape held against their
+              plain versions and timed, fedagg at the xLSTM ranks'
+              blocks held too.  Per world: peak memory a rank,
+              seconds, collective bytes by kind.
 Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no last line.  It exits nonzero at once
@@ -294,6 +314,26 @@ LM_FL = dict(rounds=2, rounds_per_dispatch=2, steps_per_round=2,
              local_batch=4, class_balanced=False, compact_to=2, lr=0.05,
              seed=3)
 TP_LM_CHILD = "import sys, chip_smoke; chip_smoke.tp_lm_child(sys.argv[1:])"
+# the tp_families phase: a routing choice may differ between the TP
+# forward and the unsharded one only where the k-th and (k+1)-th router
+# probabilities lie within this (the residual stream under TP is the
+# unsharded one summed in another order); jamba's Mamba mixer and MoE FFN
+# at full width on 1x2 at module level (a federation of its 13 G-parameter
+# superblock does not fit the card), for this many members of (batch,
+# sequence) tokens each
+TP_NEAR_TIE = 1e-5
+TP_MODULE_ARCH = "jamba-v0.1-52b"
+TP_MODULE_MEMBERS, TP_MODULE_TOKENS = 2, (2, 256)
+TP_MODULE_CHILD = ("import sys, chip_smoke; "
+                   "chip_smoke.tp_module_child(sys.argv[1:])")
+# the configurations lm_main's federation runs (``lm_main_engine``):
+# name -> (arch, its cut).  xlstm-350m keeps one superblock (5 mLSTM, 1
+# sLSTM) on the chunkwise-parallel mLSTM (the same math): the scan route
+# keeps every step's (4, 512, 512) memory per sequence for the backward,
+# about 34 GB a layer for 8 members of 4 x 256 tokens
+LM_MODELS = {"olmo": ("olmo-1b", dict(n_layers=2)),
+             "granite": (MOE_ARCH, dict(n_layers=2)),
+             "xlstm": ("xlstm-350m", dict(n_layers=6, mlstm_impl="chunk"))}
 
 
 def emit(obj):
@@ -561,18 +601,20 @@ def lm_federation(n_part, vocab, corpus_tokens, seq, seed):
 
 
 def lm_main_engine(srv, torch, device, mesh=None, nudge=0.0,
-                   participants=LM_PARTICIPANTS, tp_forward=True):
+                   participants=LM_PARTICIPANTS, tp_forward=True,
+                   model="olmo"):
     """lm_main's federation at full OLMo-1B width (two of its 16 layers,
     attention on the flash route), set up: (base config, FL config,
     engine, test tokens, seconds to draw the corpus).  ``nudge`` scales
     every initial parameter by (1 + nudge) in fp32, the dtype the engine
     trains its planes in (a bf16 leaf would round the nudge away);
     ``participants`` cuts the member count, ``tp_forward`` picks a 2D
-    mesh's member forward."""
+    mesh's member forward, ``model`` the configuration (``LM_MODELS``)."""
     from repro_torch.configs import get_config
     from repro_torch.core.families import lm_family
     from repro_torch.core.tree import tree_map
-    lm_base = get_config("olmo-1b").replace(n_layers=2, attn_impl="pallas")
+    arch, kw = LM_MODELS[model]
+    lm_base = get_config(arch).replace(attn_impl="pallas", **kw)
     lm_cfg = srv.FLConfig(**LM_FL, tp_forward=tp_forward)
     t0 = time.perf_counter()
     lparts, lcd, ltest = lm_federation(participants, lm_base.vocab_size,
@@ -1809,15 +1851,19 @@ def phase_mesh(torch, dev, env, n_test, zero_counts):
 
 
 def tp_lm_child(argv):
-    """One rank of a tp phase LM world (``RANK`` and ``WORLD_SIZE`` in
-    its environment; every rank on ``cuda:0``, over gloo): lm_main's
-    federation at ``argv[2]`` participants on a 1x2 mesh with the
+    """One rank of a tp or tp_families phase LM world (``RANK`` and
+    ``WORLD_SIZE`` in its environment; every rank on ``cuda:0``, over
+    gloo): lm_main's federation on the configuration ``argv[3]``
+    (``LM_MODELS``) at ``argv[2]`` participants on a 1x2 mesh with the
     tensor-parallel member forward (``argv[1]`` "tp") or the gather path
     ("gather"), ``train()`` once with the kernel counts set to 0 before
     it; writes ``rank<r>.json`` under ``argv[0]``: the per-round member
     losses, the launches and what the code implies, fedagg's shapes, the
     query heads each flash launch took, the probe, the collective bytes
-    per round, peak memory and seconds."""
+    per round, peak memory and seconds.  An MoE configuration also
+    records, before training, each router's top-k on the master's first
+    member batch under the TP forward against the unsharded forward of
+    the same parameters in this process (``routing_flips``)."""
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cudnn.allow_tf32 = False
@@ -1850,19 +1896,27 @@ def tp_lm_child(argv):
     aggregation.aggregate_plane, a_ops.flash_attention_bh = recording, flash
     t0 = time.perf_counter()
     srv.FedRAC = probe_engine(srv.FedRAC, calls)
-    mode, participants = argv[1], int(argv[2])
+    mode, participants, model = argv[1], int(argv[2]), argv[3]
     base, cfg, lm, ltest, _ = lm_main_engine(
         srv, torch, "cuda", mesh=mesh, participants=participants,
-        tp_forward=mode == "tp")
+        tp_forward=mode == "tp", model=model)
     live = [l for l in range(lm.m) if lm.assignment.members.get(l)]
+    flips = (routing_flips(torch, lm, base, torch.as_tensor(
+        ltest["tokens"][:LM_FL["local_batch"]], device="cuda"))
+             if base.n_experts and mode == "tp" else None)
     f_ops.weighted_aggregate.launches = d_ops.kd_loss_rows.launches = 0
+    flash.launches = 0
+    heads.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t1 = time.perf_counter()
     lm.train(ltest)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t1
-    R, L, steps = cfg.rounds, base.n_layers, cfg.steps_per_round
+    R, steps = cfg.rounds, cfg.steps_per_round
+    # attention layers (each launches flash once a forward)
+    L = base.n_superblocks * sum(k.startswith("attn")
+                                 for k in base.block_pattern)
     H = base.n_heads
     # the member steps and a slave's teacher forward take the rank's local
     # heads under the TP forward; the evaluation, outside the block, every
@@ -1870,9 +1924,11 @@ def tp_lm_child(argv):
     steps_heads = sum(R * L * (steps + (1 if l > 0 else 0)) for l in live)
     by_heads = ({str(H // world): steps_heads, str(H): R * L * len(live)}
                 if mode == "tp" else {str(H): steps_heads + R * L * len(live)})
+    by_heads = {h: n for h, n in by_heads.items() if n}
     Path(argv[0], f"rank{rank}.json").write_text(json.dumps({
         "rank": rank, "mode": mode, "participants": participants,
-        "tp": lm._tp, "block_losses": lm.block_losses,
+        "model": model, "tp": lm._tp, "block_losses": lm.block_losses,
+        "routing_flips": flips,
         "launches": {"fedagg": f_ops.weighted_aggregate.launches,
                      "distill": d_ops.kd_loss_rows.launches,
                      "flash": flash.launches},
@@ -1897,18 +1953,173 @@ def tp_lm_child(argv):
     torch.distributed.destroy_process_group()
 
 
-def lm_world(env, out_dir, mode, participants):
-    """A tp phase LM world of two ``tp_lm_child`` ranks in ``mode`` ("tp"
-    or "gather") at ``participants``: (their records, its seconds)."""
+def routing_flips(torch, lm, base, tokens):
+    """Each router's top-k on ``tokens`` under the TP forward of the
+    master's initial parameters against the unsharded forward of the same
+    parameters, in this rank: the choices made, how many tokens' expert
+    sets differ, the largest gap between the k-th and (k+1)-th router
+    probability at such a token (a near-tie when below ``TP_NEAR_TIE``)
+    and the smallest gap anywhere."""
+    from repro_torch.models import moe, tp, transformer
+    calls, orig = {"whole": [], "tp": []}, moe.top_k
+    where = ["whole"]
+
+    def rec(probs, k):
+        vals, idx = orig(probs, k)
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        calls[where[0]].append((torch.sort(idx, dim=-1).values,
+                                srt[..., k - 1] - srt[..., k]))
+        return vals, idx
+
+    plane = lm.plane_of(0, lm.init_params(0))
+    spec = lm.plane_spec(0)
+    moe.top_k = rec
+    try:
+        with torch.no_grad():
+            transformer.forward(base, lm.params_of(0, plane), tokens)
+            with tp.tp_shard_ctx(lm.mesh, lm.model_axis):
+                where[0] = "tp"
+                chunk = plane.reshape(spec.msize, spec.d_loc)[tp.tp_rank()]
+                transformer.forward(base, spec.local_params(chunk), tokens)
+    finally:
+        moe.top_k = orig
+    if len(calls["whole"]) != len(calls["tp"]):
+        raise AssertionError(f"routers: {len(calls['whole'])} unsharded, "
+                             f"{len(calls['tp'])} under TP")
+    flips, gaps_at_flips, min_gap, made = 0, [0.0], float("inf"), 0
+    for (wi, gap), (ti, _) in zip(calls["whole"], calls["tp"]):
+        differ = (wi != ti).any(dim=-1)
+        flips += int(differ.sum())
+        made += differ.numel()
+        if bool(differ.any()):
+            gaps_at_flips.append(float(gap[differ].max()))
+        min_gap = min(min_gap, float(gap.min()))
+    return {"routers": len(calls["tp"]), "tokens": made, "flips": flips,
+            "max_gap_at_flip": max(gaps_at_flips), "min_gap": min_gap,
+            "near_tie": TP_NEAR_TIE}
+
+
+def tp_module_child(argv):
+    """One rank of the tp_families phase's module world (every rank on
+    ``cuda:0``, over gloo, a 1x``WORLD_SIZE`` mesh): jamba's Mamba mixer
+    and MoE FFN at full width in fp32, parameters drawn on the card from a
+    seeded generator (the same on every rank), ``TP_MODULE_MEMBERS``
+    members of ``TP_MODULE_TOKENS`` tokens each.  The ranks take turns to
+    run the unsharded module (its forward, and its per-member gradients
+    under ``vmap(grad)``), each keeping its chunk of the result and its
+    slice of the parameters; then all run the module tensor-parallel and
+    hold forward and gradients against what they kept.  Writes
+    ``rank<r>.json`` under ``argv[0]``: per module the worst share of the
+    tolerance and the largest difference, seconds, peak memory and the
+    collective bytes of one tensor-parallel forward and backward."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib, sharding
+    from repro_torch.models import mamba, moe, tp
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    mesh_lib.init_world(rank, world, "env://", "gloo")
+    mesh = mesh_lib.make_sim_mesh(f"1x{world}", device_type="cuda")
+    calls = record_collectives()
+    cfg = get_config(TP_MODULE_ARCH).replace(dtype="float32")
+    C, (B, S) = TP_MODULE_MEMBERS, TP_MODULE_TOKENS
+    modules = {
+        "mamba": (mamba.init_mamba, lambda p, x: (
+            mamba.mamba_forward(p, cfg, x), 0.0)),
+        "moe": (moe.init_moe, lambda p, x: moe.apply_moe(p, cfg, x))}
+    out = {"rank": rank, "members": C, "tokens": [B, S], "modules": {}}
+    for seed, (name, (init, fn)) in enumerate(modules.items()):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(C, B, S, cfg.d_model, device="cuda", generator=g)
+        cot = torch.randn(C, B, S, cfg.d_model, device="cuda", generator=g)
+
+        def loss(p, x, cot):
+            y, aux = fn(p, x)
+            return (y * cot).mean() + cfg.router_aux_coef * aux
+
+        def run(p):
+            y = torch.func.vmap(lambda x: fn(p, x)[0])(x)
+            gr = torch.func.vmap(torch.func.grad(loss),
+                                 in_dims=(None, 0, 0))(p, x, cot)
+            torch.cuda.synchronize()
+            return y, gr
+
+        rec = {}
+        for turn in range(world):
+            if turn == rank:
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                p = init(torch.Generator(device="cuda").manual_seed(
+                    100 + seed), cfg, torch.float32)
+                specs = sharding.tp_specs(cfg, p, world, "model")
+                y_ref, g_ref = run(p)
+                rec["unsharded_seconds"] = time.perf_counter() - t0
+                # this rank's chunk of the member gradients (member dim
+                # first), kept in host memory while the TP run holds the card
+                g_ref = {k: sharding.local_block(
+                    mesh, v, {a: d + 1 for a, d in specs[k].items()}).cpu()
+                    for k, v in g_ref.items()}
+                p = {k: sharding.local_block(mesh, v, specs[k]).clone()
+                     for k, v in p.items()}
+                rec["unsharded_peak_mem_bytes"] = \
+                    torch.cuda.max_memory_allocated()
+                rec["split"] = {k: v.get("model") for k, v in specs.items()}
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        i = len(calls)
+        t0 = time.perf_counter()
+        with tp.tp_shard_ctx(mesh, "model"):
+            y, gr = run(p)
+        rec["tp_seconds"] = time.perf_counter() - t0
+        rec["tp_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        rec["collectives"] = collective_bytes(calls[i:], 1)
+        rec["forward"] = tensor_share(torch, y, y_ref)
+        rec["grads"] = {k: tensor_share(torch, gr[k], g_ref[k]) for k in gr}
+        out["modules"][name] = rec
+        del p, y, gr, y_ref, g_ref, x, cot
+        torch.cuda.empty_cache()
+    Path(argv[0], f"rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def tensor_share(torch, got, want):
+    """{"share": the largest |got - want| / (atol + rtol |want|),
+    "max_abs_diff"} of a tensor on the card against one of the same shape
+    (on the card or in host memory), a 2-D slice at a time."""
+    def pairs(a, b):
+        if a.dim() <= 2:
+            yield a, b.to(a.device)
+        else:
+            for x, y in zip(a.unbind(0), b.unbind(0)):
+                yield from pairs(x, y)
+
+    share = diff = 0.0
+    for a, b in pairs(got, want):
+        d = (a - b).abs()
+        share = max(share, float((d / (PARITY_ATOL
+                                       + PARITY_RTOL * b.abs())).max()))
+        diff = max(diff, float(d.max()))
+    return {"share": share, "max_abs_diff": diff}
+
+
+def lm_world(env, out_dir, mode, participants, model="olmo"):
+    """An LM world of two ``tp_lm_child`` ranks on ``model`` in ``mode``
+    ("tp" or "gather") at ``participants``: (their records, its
+    seconds)."""
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     res, secs = wait_ranks(start_ranks(
-        TP_LM_CHILD, [str(out_dir), mode, str(participants)], 2, env),
-        timeout=900)
+        TP_LM_CHILD, [str(out_dir), mode, str(participants), model], 2,
+        env), timeout=900)
     bad = [(r, rc, err[-2000:]) for r, (rc, _, err) in enumerate(res)
            if rc != 0]
     if bad:
-        raise AssertionError(f"tp LM {mode} world at {participants} "
+        raise AssertionError(f"{model} {mode} world at {participants} "
                              f"participants: ranks failed {bad}")
     return [json.loads((out_dir / f"rank{r}.json").read_text())
             for r in range(2)], secs
@@ -1957,6 +2168,16 @@ def check_lm_ranks(recs, want, allowed, label, failures):
                                             for b in pr["blocks"]])
         out.append(rec)
     return out
+
+
+def nudge_allowance(nudged, want):
+    """Per block and round, the parity tolerance's share that a one-ulp
+    nudge of the initial parameters moves the member losses by, and what
+    a mesh run is allowed: MESH_NUDGE_FACTOR times that, at least 1."""
+    nudge = [[tolerance_share(a, b) for a, b in zip(nl, wl)]
+             for (_, nl), (_, wl) in zip(nudged, want)]
+    return nudge, [[max(1.0, MESH_NUDGE_FACTOR * x) for x in blk]
+                   for blk in nudge]
 
 
 def phase_tp(torch, dev, env, tp_state, lm_ref):
@@ -2028,10 +2249,7 @@ def phase_tp(torch, dev, env, tp_state, lm_ref):
     tp_root = ROOT / "build" / "chip_smoke" / "tp"
     recs, lm_secs = lm_world(env, tp_root / "full", "tp", LM_PARTICIPANTS)
     want = lm_ref["block_losses"]
-    nudge = [[tolerance_share(a, b) for a, b in zip(nl, wl)]
-             for (_, nl), (_, wl) in zip(nud_losses, want)]
-    allowed = [[max(1.0, MESH_NUDGE_FACTOR * x) for x in blk]
-               for blk in nudge]
+    nudge, allowed = nudge_allowance(nud_losses, want)
     lm_ranks = check_lm_ranks(recs, want, allowed, "tp LM", failures)
     # (c) at the cut member count: the unsharded run here, then the gather
     # path's world and the TP forward's, each held to it
@@ -2105,6 +2323,143 @@ def phase_tp(torch, dev, env, tp_state, lm_ref):
             launches[k][f"lm_1x2_{mode}_cut"] = [
                 rk["launches"][k] for rk in cut[mode]["per_rank"]]
     return launches, flash_local
+
+
+def phase_tp_families(torch, dev, env, moe_ref):
+    """Phase 22, ``tp_families``: the tensor-parallel member forward of
+    the other families on the card, over gloo.  (a) moe_main's federation
+    (granite-moe at full width, 2 of 24 layers, 32 experts top-8,
+    capacity dispatch, flash) on a 1x2 mesh of two ``tp_lm_child``
+    processes: held as the tp phase holds lm_main's world (member losses
+    against moe_main's within the parity tolerance or MESH_NUDGE_FACTOR
+    times a one-ulp nudge's move, run here first; launches as the code
+    implies; whole-leaf copies equal; no plane gather inside a block), the
+    routers' choices against the unsharded forward's (a flip only at a
+    near-tie), each rank's peak below moe_main's.  (b) xlstm-350m at full
+    width (6 of 24 layers: 5 mLSTM, 1 sLSTM) on the same federation:
+    unsharded and nudged here, then its 1x2 world, held alike.  (c)
+    jamba's Mamba mixer and MoE FFN at module level on 1x2
+    (``tp_module_child``): forward and per-member gradients against the
+    unsharded module within the parity tolerance.  Then fedagg at the
+    granite ranks' blocks and flash at their local-head GQA shape against
+    their plain versions, timed, and fedagg at the xLSTM ranks' blocks
+    against its plain version.  Returns each world's launches per rank
+    and the timed kernels."""
+    from repro_torch.core import server as srv
+    from repro_torch.kernels.fedagg import ops as f_ops, ref as f_ref
+    from repro_torch.kernels.flash import ops as a_ops, ref as a_ref
+    failures, worlds, out = [], {}, {}
+    root = ROOT / "build" / "chip_smoke" / "tp_families"
+    refs = {"granite": moe_ref}
+    for model in ("granite", "xlstm"):
+        torch.cuda.empty_cache()
+        if model not in refs:
+            # the unsharded run at full count, here
+            _, _, e, t, _ = lm_main_engine(srv, torch, "cuda", model=model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            e.train(t)
+            torch.cuda.synchronize()
+            refs[model] = {"block_losses": e.block_losses,
+                           "train_seconds": time.perf_counter() - t0,
+                           "peak_mem_bytes":
+                               torch.cuda.max_memory_allocated()}
+            check_finite(torch, e, e.block_losses, {})
+            del e
+            torch.cuda.empty_cache()
+        _, _, e, t, _ = lm_main_engine(srv, torch, "cuda", model=model,
+                                       nudge=2.0 ** -23)
+        e.train(t)
+        nudged = e.block_losses
+        del e
+        torch.cuda.empty_cache()
+        recs, secs = lm_world(env, root / model, "tp", LM_PARTICIPANTS,
+                              model)
+        nudge, allowed = nudge_allowance(nudged, refs[model]["block_losses"])
+        ranks = check_lm_ranks(recs, refs[model]["block_losses"], allowed,
+                               f"tp_families {model}", failures)
+        for rk in ranks:
+            if (model == "granite" and rk["peak_mem_bytes"]
+                    >= refs[model]["peak_mem_bytes"]):
+                failures.append(f"{model} rank {rk['rank']}: peak "
+                                f"{rk['peak_mem_bytes']} not below the "
+                                f"unsharded {refs[model]['peak_mem_bytes']}")
+            fl = rk["routing_flips"]
+            if fl is not None and (not fl["routers"] or
+                                   fl["max_gap_at_flip"] > TP_NEAR_TIE):
+                failures.append(f"{model} rank {rk['rank']}: routing "
+                                f"{fl}")
+        worlds[model] = {
+            "arch": LM_MODELS[model][0], "cut": LM_MODELS[model][1],
+            "mesh": "1x2", "backend": "gloo",
+            "participants": LM_PARTICIPANTS, "process_seconds": secs,
+            "unsharded": {k: v for k, v in refs[model].items()
+                          if k != "block_losses"},
+            "nudge_share_by_block": nudge, "allowed_by_block": allowed,
+            "per_rank": ranks}
+    # (c) jamba at module level
+    mdir = root / "jamba_module"
+    shutil.rmtree(mdir, ignore_errors=True)
+    mdir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    res, secs = wait_ranks(start_ranks(TP_MODULE_CHILD, [str(mdir)], 2, env),
+                           timeout=900)
+    bad = [(r, rc, err[-2000:]) for r, (rc, _, err) in enumerate(res)
+           if rc != 0]
+    if bad:
+        raise AssertionError(f"tp_families jamba module world: {bad}")
+    mods = [json.loads((mdir / f"rank{r}.json").read_text())
+            for r in range(2)]
+    for rk in mods:
+        for name, rec in rk["modules"].items():
+            worst = max([rec["forward"]["share"]]
+                        + [g["share"] for g in rec["grads"].values()])
+            rec["worst_share"] = worst
+            if not worst <= 1.0:
+                failures.append(f"jamba {name} rank {rk['rank']}: worst "
+                                f"share {worst}")
+    worlds["jamba_module"] = {
+        "arch": TP_MODULE_ARCH, "mesh": "1x2", "backend": "gloo",
+        "modules": "one Mamba mixer (d_inner 8192) and one MoE FFN (16 "
+                   "experts top-2, d_ff 14336, capacity dispatch), fp32",
+        "members": TP_MODULE_MEMBERS, "tokens_per_member": TP_MODULE_TOKENS,
+        "process_seconds": secs, "per_rank": mods}
+    # the kernels at the granite ranks' shapes
+    granite = worlds["granite"]["per_rank"]
+    for C, D in sorted({tuple(x) for rk in granite
+                        for x in rk["fedagg_shapes"]}):
+        x, w, err = check_fedagg(torch, f_ops, f_ref, dev, C, D)
+        out.setdefault("fedagg", {})[f"{C}x{D}"] = dict(
+            time_fedagg(torch, f_ops, f_ref, x, w), max_abs_err=err,
+            launches=[rk["launches"]["fedagg"] for rk in granite])
+        del x, w
+    for C, D in sorted({tuple(x) for rk in worlds["xlstm"]["per_rank"]
+                        for x in rk["fedagg_shapes"]}):
+        x, w, err = check_fedagg(torch, f_ops, f_ref, dev, C, D)
+        out.setdefault("fedagg_checked", {})[f"{C}x{D}"] = err
+        del x, w
+    torch.cuda.empty_cache()
+    C0 = moe_ref["capacity"]
+    H, KV, hd = (moe_ref["heads"] // 2, moe_ref["kv_heads"] // 2,
+                 moe_ref["head_dim"])
+    B = LM_FL["local_batch"]
+    out["flash"] = check_flash(torch, a_ops, a_ref, dev, {
+        "name": "granite_tp_member_step_local_heads", "bh": C0 * B * H,
+        "kv_rows": C0 * B * KV, "H": H, "S": LM_SEQ, "hd": hd,
+        "dtype": "float32", "causal": True, "window": 0, "softcap": 0.0})
+    out["flash"]["launches"] = [rk["launches"]["flash"] for rk in granite]
+    emit({"phase": "tp_families", "worlds": worlds, "kernels": out,
+          "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL,
+                        "nudge_factor": MESH_NUDGE_FACTOR,
+                        "near_tie": TP_NEAR_TIE}})
+    if failures:
+        raise AssertionError(f"tp_families: {failures}")
+    launches = {k: {f"{m}_1x2": [rk["launches"][k]
+                                 for rk in worlds[m]["per_rank"]]
+                    for m in ("granite", "xlstm")}
+                for k in ("fedagg", "distill", "flash")}
+    return launches, out
 
 
 def main():
@@ -2203,11 +2558,8 @@ def main():
 
     # the MoE main path: granite-moe-1b-a400m at full width, two of its 24
     # layers, on lm_main's federation, schedule and engine
-    moe_base = get_config(MOE_ARCH).replace(n_layers=2, attn_impl="pallas")
-    mparts, mcd, mtest = lm_federation(LM_PARTICIPANTS, moe_base.vocab_size,
-                                       LM_CORPUS_TOKENS, LM_SEQ, 3)
-    meng = TokenFedRAC(mparts, mcd, lm_family(moe_base, 0.5), lm_cfg,
-                       classes=moe_base.padded_vocab, device="cuda").setup()
+    moe_base, _, meng, mtest, _ = lm_main_engine(srv, torch, "cuda",
+                                                 model="granite")
     moe_members = meng.assignment.members
     moe_live = [l for l in range(meng.m) if moe_members.get(l)]
     if not (0 in moe_live and any(l > 0 for l in moe_live)):
@@ -3150,6 +3502,7 @@ def main():
     mres = meng.train(mtest)
     torch.cuda.synchronize()
     moe_train_s = time.perf_counter() - t0
+    moe_block_losses = list(meng.block_losses)
     mt = torch.as_tensor(mtest["tokens"], device=dev)
     moe_kd = {}
     with torch.no_grad():
@@ -3460,6 +3813,11 @@ def main():
     tp_launches, flash_local = phase_tp(torch, dev, env, tp_state, {
         "block_losses": lm_block_losses, "heads": H, "head_dim": hd,
         "capacity": lm_shapes[0][0]})
+    # 22. the tensor-parallel forward of the other families ---------------
+    fam_tp_launches, fam_tp_kernels = phase_tp_families(torch, dev, env, {
+        "block_losses": moe_block_losses, "peak_mem_bytes": moe_peak,
+        "capacity": moe_shapes[0][0], "heads": mH, "kv_heads": mKV,
+        "head_dim": mhd})
 
     # kernels line, card line, last line -----------------------------------
     D0 = lm_shapes[0][1]
@@ -3483,12 +3841,17 @@ def main():
         by_path["fedagg"][f"mesh_{shape}_per_rank"] = per_rank
     for k in by_path:
         by_path[k]["tp"] = tp_launches[k]
+        by_path[k]["tp_families"] = fam_tp_launches[k]
     emit({"kernels": [
         {"name": "fedagg", "route": "cuda",
          "source": "src/repro_torch/kernels/fedagg/csrc/fedagg.cu",
          "replaces": "src/repro/kernels/fedagg/kernel.py:23",
          "shape": [C0, D0], "launches": lm_launches["fedagg"],
          "launches_by_path": by_path["fedagg"],
+         "tp_families_rank_blocks": {k: {f: v[f] for f in (
+             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")}
+             for k, v in fam_tp_kernels["fedagg"].items()},
          "max_abs_err": fed["max_abs_err"], "ms": fed["ms"],
          "plain_ms": fed["plain_ms"], "bound_ms": fed["bound_ms"],
          "bound_by": fed["bound_by"], "library_ms": fed["library_ms"]},
@@ -3511,6 +3874,9 @@ def main():
          "tp_local_heads": {k: flash_local[k] for k in (
              "bh", "H", "S", "hd", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms")},
+         "tp_families_local_heads": {k: fam_tp_kernels["flash"][k] for k in (
+             "bh", "kv_rows", "H", "S", "hd", "launches", "max_abs_err", "ms",
+             "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "tensor_cores": fl["route"] == "tc",
          "bound_cuda_core_ms": fl["bound_cuda_core_ms"], "peak": fl["peak"],
          "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],

@@ -140,26 +140,19 @@ def lm_family(base_cfg: ModelConfig, alpha: float = 0.5) -> FLModelFamily:
             picked = torch.gather(lg, -1, lbl[..., None])[..., 0]
             ce = torch.mean(lse - picked)
             kd_logits = logits[:, -1]
+        # the router's aux loss is replicated on every rank: added once
         return ce + cfg.router_aux_coef * aux, kd_logits
 
     def param_specs(level, template, msize, axis):
-        """The launch stack's Megatron name rules (``tp_specs``):
-        vocab-parallel embed and head, column-parallel wq / wk / wv / up,
-        row-parallel wo / down.  The TP forward covers decoder-only
-        attention blocks with a dense MLP; other blocks refuse."""
-        cfg = cfg_at(level)
-        other = sorted({k for k in cfg.block_pattern
-                        if k not in ("attn", "attn_local")}
-                       | {"moe" for j in range(cfg.period)
-                          if cfg.ffn_kind(j) == "moe"}
-                       | ({"encdec"} if cfg.family == "encdec" else set()))
-        if other:
-            raise NotImplementedError(
-                f"the tensor-parallel member forward covers decoder-only "
-                f"attention blocks with a dense MLP; {cfg.name} has "
-                f"{other} (ROADMAP item 11c); tp_forward=False gathers "
-                "the plane's columns for a replicated forward")
-        return tp_specs(cfg, template, msize, axis)
+        """The launch stack's Megatron name rules (``tp_specs``), as JAX's
+        family gives them for every arch: vocab-parallel embed and head,
+        column-parallel wq / wk / wv / up / in_proj ..., row-parallel wo /
+        down / out_proj ..., MoE experts split on d_ff or (``"ep"``) on
+        the expert axis, routers and small leaves whole.  The FL build is
+        the decoder-only ``transformer`` model for every family (the
+        enc-dec arch included), and its TP forward covers every mixer and
+        FFN (``models.tp``)."""
+        return tp_specs(cfg_at(level), template, msize, axis)
 
     return FLModelFamily(
         init=init, loss_and_logits=loss_and_logits,

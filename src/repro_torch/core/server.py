@@ -273,7 +273,7 @@ class FedRAC:
                     and family.param_specs is not None)
         self._t_plane_cache = None        # (teacher pytree, its TP plane)
         if self._tp:
-            self.plane_spec(0)            # a family it does not cover refuses
+            self.plane_spec(0)            # the master's TP layout, up front
 
     # ------------------------------------------------------------ setup
     def setup(self):

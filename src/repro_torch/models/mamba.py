@@ -9,6 +9,17 @@ place of ``jax.lax.associative_scan``, which torch lacks.  The two scans
 associate the products differently, so results agree with JAX to fp32
 rounding, not bit for bit.  Decode keeps the ``(B, d_inner, state)``
 hidden state and a (conv_k - 1)-deep conv buffer in the cache.
+
+Under a tensor-parallel context (``models.tp``) that splits ``d_inner``
+each rank runs the scan on its slice of the channels, rank-partial.  The
+``in_proj`` output is gathered, because its columns split contiguously
+over the x / z halves (on two ranks one holds all of x, the other all of
+z) and each rank needs its slice of both; the conv then runs whole on the
+gathered conv leaves, so the ``x_proj`` product sees the whole ``xc`` and
+its (dt, B, C) output, gathered where ``x_proj`` splits, is whole on every
+rank (B and C feed every channel).  ``dt_proj``, ``dt_bias``, ``A_log``,
+``D`` and the gate take the rank's channels, and the row-parallel
+``out_proj`` ends in one ``reduce_from_tp``.
 """
 from __future__ import annotations
 
@@ -16,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tp
 from repro_torch.models.layers import dense_init, normal
 
 CHUNK = 128
@@ -41,10 +53,12 @@ def init_mamba(generator, cfg: ModelConfig, dtype):
     }
 
 
-def _ssm_inputs(p, cfg: ModelConfig, xc):
-    """xc: post-conv activations (B,S,di) -> dt (B,S,di), Bm/Cm (B,S,st)."""
+def _ssm_inputs(p, cfg: ModelConfig, xc, part: bool = False):
+    """xc: post-conv activations (B,S,di) -> dt (B,S,di), Bm/Cm (B,S,st).
+    ``part``: rank-partial computation over a split ``d_inner``, where dt
+    holds this rank's channels."""
     st, dtr = cfg.ssm_state, cfg.dt_rank
-    proj = xc @ p["x_proj"]
+    proj = tp.linear_whole(xc, p["x_proj"], dtr + 2 * st, part)
     dt, Bm, Cm = torch.split(proj, [dtr, st, st], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
     return dt, Bm, Cm
@@ -72,11 +86,20 @@ def scan_linear(a, b):
 def mamba_forward(p, cfg: ModelConfig, x):
     """x: (B,S,d) -> (B,S,d).  Full sequence (train / prefill)."""
     B, S, _ = x.shape
-    di, st = cfg.d_inner, cfg.ssm_state
-    xm, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
-    xc = _causal_conv(xm, p["conv_w"], p["conv_b"])
-    dt, Bm, Cm = _ssm_inputs(p, cfg, xc)
+    di = cfg.d_inner
+    # under a tensor-parallel split of d_inner the rank runs its share
+    part = p["out_proj"].shape[-2] != di
+    if part:
+        x = tp.copy_to_tp(x)
+    xm, z = torch.chunk(tp.linear_whole(x, p["in_proj"], 2 * di, part), 2,
+                        dim=-1)
+    xc = _causal_conv(xm, tp.whole(p["conv_w"], di, partial=part),
+                      tp.whole(p["conv_b"], di, partial=part))
+    dt, Bm, Cm = _ssm_inputs(p, cfg, xc, part)
+    if part:
+        xc, z = tp.own(xc), tp.own(z)
     A = -torch.exp(p["A_log"].to(torch.float32))                 # (di,st)
+    di, st = A.shape
     chunk = min(CHUNK, S)
     if S % chunk:
         raise ValueError(f"mamba prefill: S={S} is not a multiple of the "
@@ -97,7 +120,8 @@ def mamba_forward(p, cfg: ModelConfig, x):
     y = torch.cat(ys, dim=1)
     y = y.to(x.dtype) + xc * p["D"]
     y = y * F.silu(z)
-    return y @ p["out_proj"]
+    y = y @ p["out_proj"]
+    return tp.reduce_from_tp(y) if part else y
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device=None):

@@ -16,6 +16,19 @@ dispatch tensor is built as (G, gs, E, cap) directly, by contracting the
 expert and slot one-hots over the K routing choices, never as JAX's
 (G, gs*K, E, cap) intermediate: a token takes an expert once at most, so
 each entry is one 0/1 product and the values are JAX's exactly.
+
+Under a tensor-parallel context (``models.tp``) the expert leaves are this
+rank's slices as ``launch.sharding.tp_specs`` splits them (``expert_split``):
+each expert's slice of ``d_ff`` (``moe_shard="tp"``: column-parallel
+``w_gate`` / ``w_up``, row-parallel ``w_down``), or E/m whole experts
+(``"ep"``, where E divides; else the ``d_ff`` split).  The router is a whole
+leaf and routes on the replicated input, so every rank makes the same
+choices, queue positions and capacity drops as one device, and the aux
+loss stays replicated.  The experts run rank-partial: the input and the
+routing weights enter by ``copy_to_tp``, an expert-parallel rank takes
+its experts' columns of the combine (dense) or dispatch / combine
+(capacity) tensors, and one ``reduce_from_tp`` after the combine sums the
+ranks' shares: one all-reduce per MoE layer, the combine being linear.
 """
 from __future__ import annotations
 
@@ -23,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tp
 from repro_torch.models.layers import dense_init, normal
 
 
@@ -70,9 +84,27 @@ def _expert_weights(top_w, top_i, E: int):
             ).sum(dim=-2)
 
 
-def _apply_dense(p, cfg: ModelConfig, x):
+def expert_split(p, cfg: ModelConfig):
+    """How this rank holds the expert leaves: "ep" (its E/m whole
+    experts), "f" (every expert's slice of ``d_ff``) or None (whole)."""
+    E, _, f = p["w_gate"].shape[-3:]
+    if E != cfg.n_experts:
+        return "ep"
+    return "f" if f != cfg.d_ff else None
+
+
+def _rank_experts(split, t, dim: int):
+    """This rank's experts' entries of ``t``'s expert ``dim`` under
+    expert parallelism; ``t`` otherwise."""
+    return tp.own(t, dim) if split == "ep" else t
+
+
+def _apply_dense(p, cfg: ModelConfig, x, split):
     probs, top_w, top_i = _route(p, cfg, x)
-    combine = _expert_weights(top_w, top_i, cfg.n_experts).to(x.dtype)
+    if split:
+        x, top_w = tp.copy_to_tp(x), tp.copy_to_tp(top_w)
+    combine = _rank_experts(split, _expert_weights(
+        top_w, top_i, cfg.n_experts).to(x.dtype), -1)
     g = torch.einsum("bsd,edf->besf", x, p["w_gate"])
     u = torch.einsum("bsd,edf->besf", x, p["w_up"])
     h = F.silu(g) * u
@@ -87,7 +119,7 @@ def capacity(cfg: ModelConfig, gs: int) -> int:
                         // cfg.n_experts)))
 
 
-def _apply_capacity(p, cfg: ModelConfig, x):
+def _apply_capacity(p, cfg: ModelConfig, x, split):
     B, S, d = x.shape
     N = B * S
     gs = min(cfg.moe_group, N)
@@ -102,11 +134,12 @@ def _apply_capacity(p, cfg: ModelConfig, x):
         # one chunk of groups at a time: only its dispatch tensors are live
         ys, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
         for c in range(G // cg):
-            y, a = _capacity_groups(p, cfg, xt[c * cg:(c + 1) * cg], cap)
+            y, a = _capacity_groups(p, cfg, xt[c * cg:(c + 1) * cg], cap,
+                                    split)
             ys.append(y)
             aux = aux + a
         return torch.cat(ys).reshape(B, S, d), aux / (G // cg)
-    y, aux = _capacity_groups(p, cfg, xt, cap)
+    y, aux = _capacity_groups(p, cfg, xt, cap, split)
     return y.reshape(B, S, d), aux
 
 
@@ -130,18 +163,22 @@ def kept_choices(p, cfg: ModelConfig, x):
     return int((pos < capacity(cfg, gs)).sum()), pos.numel()
 
 
-def _capacity_groups(p, cfg: ModelConfig, xt, cap: int):
-    """xt: (G, gs, d) -> (y (G, gs, d), aux)."""
+def _capacity_groups(p, cfg: ModelConfig, xt, cap: int, split):
+    """xt: (G, gs, d) -> (y (G, gs, d), aux); y is this rank's share
+    under a ``split``."""
     G, gs, d = xt.shape
     E, K = cfg.n_experts, cfg.experts_per_tok
     probs, top_w, top_i = _route(p, cfg, xt)                  # (G,gs,E/K)
+    if split:
+        xt, top_w = tp.copy_to_tp(xt), tp.copy_to_tp(top_w)
     oh = _one_hot(top_i, E)                                   # (G,gs,K,E)
     pos = queue_positions(top_i, E)                           # (G,gs*K)
     slot = _one_hot(pos, cap) & (pos < cap)[..., None]        # (G,gsK,cap)
     disp = torch.einsum("gske,gskc->gsec", oh.to(torch.float32),
                         slot.reshape(G, gs, K, cap).to(torch.float32))
     comb = disp * _expert_weights(top_w, top_i, E)[..., None]
-    disp_t, comb_t = disp.to(xt.dtype), comb.to(xt.dtype)     # (G,gs,E,cap)
+    disp_t, comb_t = (_rank_experts(split, t.to(xt.dtype), 2)
+                      for t in (disp, comb))                  # (G,gs,E,cap)
     ein = torch.einsum("gsec,gsd->gecd", disp_t, xt)          # (G,E,cap,d)
     g = torch.einsum("gecd,edf->gecf", ein, p["w_gate"])
     u = torch.einsum("gecd,edf->gecf", ein, p["w_up"])
@@ -153,6 +190,7 @@ def _capacity_groups(p, cfg: ModelConfig, xt, cap: int):
 
 def apply_moe(p, cfg: ModelConfig, x):
     """x: (B, S, d) -> (y, load-balance aux loss)."""
-    if cfg.moe_impl == "capacity":
-        return _apply_capacity(p, cfg, x)
-    return _apply_dense(p, cfg, x)
+    split = expert_split(p, cfg)
+    run = _apply_capacity if cfg.moe_impl == "capacity" else _apply_dense
+    y, aux = run(p, cfg, x, split)
+    return (tp.reduce_from_tp(y) if split else y), aux

@@ -23,6 +23,18 @@ step; a backward that needs a collective calls the dual operation, whose
 own rule batches it.  With no context active (``tp_shard_ctx``), every one
 of them returns its input: single-device code paths do not change by a bit.
 
+Three compositions serve the mixers whose split does not end at one
+column-parallel / row-parallel pair (Mamba, the xLSTM cells, the MoE
+experts).  Such a mixer runs *rank-partial*: from its input to its last,
+row-parallel product each rank computes only its share of the output,
+which one ``reduce_from_tp`` sums.  Every tensor that all ranks hold and
+that enters that computation (the input, a whole leaf, a gathered
+activation or leaf) goes through ``copy_to_tp`` once, so that its gradient
+is the sum of the ranks' shares: ``whole`` gathers a tensor a rank holds a
+slice of and copies it in, ``linear_whole`` is a product whose output
+columns may be split, made whole, and ``own`` is this rank's slice of a
+whole tensor inside that computation (a plain view).
+
 ``tp_shard_ctx(mesh, axis)`` and ``tp_ctx()`` keep JAX's names and
 scoping: the server enters the context around a tensor-parallel dispatch
 block.
@@ -254,3 +266,37 @@ def vocab_parallel_ce(logits, labels):
     inside = (t >= 0) & (t < v)
     picked = torch.gather(logits, -1, t.clamp(0, v - 1)[..., None])[..., 0]
     return lse - reduce_from_tp(picked * inside)
+
+
+def whole(x, n: int, dim: int = -1, partial: bool = False):
+    """``x`` whole on every rank: where its ``dim`` is this rank's slice of
+    ``n`` (a split leaf, or a column-parallel product's output) every
+    rank's slice is gathered.  ``partial``: it feeds rank-partial
+    computation, so it enters through ``copy_to_tp`` (the backward sums
+    the ranks' gradients, then keeps this rank's slice).  With no context,
+    or a whole ``x`` outside rank-partial computation, returns ``x``."""
+    if x.shape[dim] != n:
+        x = gather_from_tp(x, dim)
+    return copy_to_tp(x) if partial else x
+
+
+def linear_whole(x, w, n: int, partial: bool = False):
+    """``x @ w`` of ``n`` output columns, whole on every rank, where ``w``
+    may hold this rank's slice of them.  A split ``w`` takes a
+    column-parallel product and gathers its output (``x`` copied in
+    unless it is already inside rank-partial computation); a whole ``w``
+    is copied in when ``partial``."""
+    if w.shape[-1] != n:
+        return whole((x if partial else copy_to_tp(x)) @ w, n,
+                     partial=partial)
+    return x @ (copy_to_tp(w) if partial else w)
+
+
+def own(x, dim: int = -1):
+    """This rank's contiguous slice of ``dim`` of a whole tensor inside
+    rank-partial computation: a plain view, its gradient this rank's share
+    (summed upstream by ``copy_to_tp``).  ``x`` itself with no context."""
+    if _CTX is None:
+        return x
+    k = x.shape[dim] // tp_size()
+    return x.narrow(dim, tp_rank() * k, k)

@@ -9,6 +9,19 @@ Python loops over time where JAX runs ``lax.scan``; ``mlstm_impl="chunk"``
 selects the chunkwise-parallel mLSTM (same math, the recurrence crossing
 only chunk boundaries).  The sLSTM's GeGLU uses the tanh GELU, the default
 of ``jax.nn.gelu``.
+
+Under a tensor-parallel context (``models.tp``) each cell runs on this
+rank's heads where the split falls on heads.  The mLSTM's ``up`` output is
+gathered (its x / z halves are split contiguously, so a rank's columns are
+not a matching slice of each half), its conv runs whole on the gathered
+conv leaves, ``wq`` / ``wk`` / ``wv`` and the gate columns of ``w_if`` /
+``b_if`` take the rank's heads, ``skip`` its channels, and ``down`` ends
+in one ``reduce_from_tp``.  The mLSTM runs rank-partial (``models.tp``).  The
+sLSTM's ``wx`` columns are head-major (all four gates of a head
+together), so a rank's columns are whole heads: its cell runs on them with
+its heads' slices of ``r`` and ``b``, its output is gathered, and the
+GeGLU is a Megatron MLP.  Where the heads do not split evenly the cut
+tensors are gathered and the cell runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -16,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import tp
 from repro_torch.models.layers import dense_init, normal
 
 _F32 = torch.float32
@@ -70,16 +84,31 @@ def _mlstm_cell(carry, qkvif):
     return (C, n, m_new), h
 
 
-def _mlstm_qkvif(p, cfg: ModelConfig, xm):
-    """xm: (B,S,di) pre-conv input half.  Returns per-step tensors."""
+def _mlstm_qkvif(p, cfg: ModelConfig, xm, part: bool = False):
+    """xm: (B,S,di) pre-conv input half.  Returns per-step tensors over
+    the heads this rank runs, and the post-conv xc (B,S,di).  ``part``:
+    rank-partial computation over a split ``d_inner``, where the rank runs
+    its own heads if they split evenly, else all of them."""
     B, S, di = xm.shape
     H = cfg.n_heads
     hd = di // H
-    xc = _conv4(xm, p["conv_w"], p["conv_b"])
-    q = (xc @ p["wq"]).reshape(B, S, H, hd)
-    k = (xc @ p["wk"]).reshape(B, S, H, hd) * (hd ** -0.5)
-    v = (xm @ p["wv"]).reshape(B, S, H, hd)
-    gate = (xm @ p["w_if"]).to(_F32) + p["b_if"].to(_F32)
+    xc = _conv4(xm, tp.whole(p["conv_w"], di, partial=part),
+                tp.whole(p["conv_b"], di, partial=part))
+    if part and H % tp.tp_size() == 0:
+        # this rank's heads: its columns of wq / wk / wv, and of the gates
+        H //= tp.tp_size()
+        q, k, v = xc @ p["wq"], xc @ p["wk"], xm @ p["wv"]
+        w_if, b_if = (tp.scatter_to_tp(t.unflatten(-1, (2, -1))).flatten(-2)
+                      for t in (p["w_if"], p["b_if"]))
+    else:
+        q, k, v = (tp.linear_whole(t, p[n], di, part)
+                   for t, n in ((xc, "wq"), (xc, "wk"), (xm, "wv")))
+        w_if, b_if = (tp.whole(p[n], 2 * H, partial=part)
+                      for n in ("w_if", "b_if"))
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, H, hd) * (hd ** -0.5)
+    v = v.reshape(B, S, H, hd)
+    gate = (xm @ w_if).to(_F32) + b_if.to(_F32)
     it, ft = gate[..., :H], gate[..., H:]
     return q, k, v, it, ft, xc
 
@@ -150,18 +179,27 @@ def _mlstm_chunked(cfg: ModelConfig, q, k, v, it, ft, B, S, H, hd,
 def mlstm_forward(p, cfg: ModelConfig, x):
     B, S, d = x.shape
     di = cfg.mlstm_expand * d
-    H = cfg.n_heads
-    hd = di // H
-    xm, z = torch.chunk(x @ p["up"], 2, dim=-1)
-    q, k, v, it, ft, xc = _mlstm_qkvif(p, cfg, xm)
+    # under a tensor-parallel split of d_inner the rank runs its share
+    part = p["down"].shape[-2] != di
+    if part:
+        x = tp.copy_to_tp(x)
+    xm, z = torch.chunk(tp.linear_whole(x, p["up"], 2 * di, part), 2,
+                        dim=-1)
+    q, k, v, it, ft, xc = _mlstm_qkvif(p, cfg, xm, part)
+    H, hd = q.shape[-2:]
     if cfg.mlstm_impl == "chunk" and S > 1:
         hs = _mlstm_chunked(cfg, q, k, v, it, ft, B, S, H, hd)
     else:
         hs = _mlstm_seq(cfg, q, k, v, it, ft, B, S, H, hd)
-    h = hs.reshape(B, S, di).to(x.dtype)
+    h = hs.reshape(B, S, H * hd).to(x.dtype)
+    if part:
+        if H * hd == di:                  # the heads ran whole: its slice
+            h = tp.own(h)
+        xc, z = tp.own(xc), tp.own(z)
     h = h + p["skip"] * xc
     h = h * F.silu(z)
-    return h @ p["down"]
+    out = h @ p["down"]
+    return tp.reduce_from_tp(out) if part else out
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device=None):
@@ -200,11 +238,16 @@ def mlstm_decode(p, cfg: ModelConfig, cache, x, pos):
 
 
 # ------------------------------------------------------------------ sLSTM
+def _slstm_pf(cfg: ModelConfig) -> int:
+    """The sLSTM's GeGLU width, ``slstm_proj`` of d aligned to 128."""
+    return -(-int(cfg.slstm_proj * cfg.d_model) // 128) * 128
+
+
 def init_slstm(generator, cfg: ModelConfig, dtype):
     d = cfg.d_model
     H = cfg.n_heads
     hd = d // H
-    pf = -(-int(cfg.slstm_proj * d) // 128) * 128    # aligned to 128
+    pf = _slstm_pf(cfg)
     return {
         "wx": dense_init(generator, d, 4 * d, dtype),
         # recurrent weights, block-diagonal per head: (H, hd, 4*hd)
@@ -216,13 +259,13 @@ def init_slstm(generator, cfg: ModelConfig, dtype):
     }
 
 
-def _slstm_cell(p, cfg: ModelConfig, carry, xg):
-    """carry: (c, n, h, m), each (B,H,hd).  xg: (B, 4d) pre-activations."""
+def _slstm_cell(r, carry, xg):
+    """r: (H,hd,4hd) recurrent blocks of the heads run; carry: (c, n, h,
+    m), each (B,H,hd).  xg: (B, H*4hd) pre-activations, head-major."""
     c, n, h, m = carry
     B = xg.shape[0]
-    H = cfg.n_heads
-    hd = cfg.d_model // H
-    rec = torch.einsum("bhd,hdk->bhk", h, p["r"].to(_F32))   # (B,H,4hd)
+    H, hd = r.shape[:2]
+    rec = torch.einsum("bhd,hdk->bhk", h, r.to(_F32))        # (B,H,4hd)
     g = xg.reshape(B, H, 4 * hd).to(_F32) + rec
     zt, it, ft, ot = torch.chunk(g, 4, dim=-1)                # (B,H,hd)
     z = torch.tanh(zt)
@@ -245,16 +288,31 @@ def _slstm_carry(B, H, hd, device):
 
 def slstm_forward(p, cfg: ModelConfig, x):
     B, S, d = x.shape
-    H = cfg.n_heads
-    xg = x @ p["wx"] + p["b"]
-    carry = _slstm_carry(B, H, d // H, x.device)
+    r = p["r"]
+    heads = (p["wx"].shape[-1] != 4 * d
+             and cfg.n_heads % tp.tp_size() == 0)
+    if heads:
+        # this rank's columns of wx are whole heads: its slices of r and b
+        xg = tp.copy_to_tp(x) @ p["wx"] + tp.scatter_to_tp(p["b"])
+        r = tp.scatter_to_tp(r, 0)
+    else:
+        xg = tp.linear_whole(x, p["wx"], 4 * d) + p["b"]
+    H, hd = r.shape[:2]
+    carry = _slstm_carry(B, H, hd, x.device)
     hs = []
     for t in range(S):
-        carry = _slstm_cell(p, cfg, carry, xg[:, t])
+        carry = _slstm_cell(r, carry, xg[:, t])
         hs.append(carry[2])
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
-    # post up / down projection (GeGLU, factor slstm_proj)
-    return (_gelu(h @ p["up_g"]) * (h @ p["up_v"])) @ p["down"]
+    h = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
+    if heads:
+        h = tp.gather_from_tp(h)
+    # post up / down projection (GeGLU, factor slstm_proj), a Megatron MLP
+    # under a split of its width
+    split = p["down"].shape[-2] != _slstm_pf(cfg)
+    if split:
+        h = tp.copy_to_tp(h)
+    y = (_gelu(h @ p["up_g"]) * (h @ p["up_v"])) @ p["down"]
+    return tp.reduce_from_tp(y) if split else y
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, dtype, device=None):
@@ -269,7 +327,7 @@ def slstm_decode(p, cfg: ModelConfig, cache, x, pos):
     B, _, d = x.shape
     xg = x[:, 0] @ p["wx"] + p["b"]
     carry = (cache["c"], cache["n"], cache["h"], cache["m"])
-    c, n, h, m = _slstm_cell(p, cfg, carry, xg)
+    c, n, h, m = _slstm_cell(p["r"], carry, xg)
     hh = h.reshape(B, d).to(x.dtype)
     y = (_gelu(hh @ p["up_g"]) * (hh @ p["up_v"])) @ p["down"]
     return y[:, None], {"c": c, "n": n, "h": h, "m": m}

@@ -1,12 +1,16 @@
 """JAX-side halves of the port's mesh tests (``test_torch_mesh_fedrac.py``,
-``test_torch_tp_forward.py``): the unsharded port engine that takes and
-records JAX's batch-index draws, the banked blocks' inputs drawn from a
-JAX engine, and the run the JAX engine is held to (single device, no
-mesh: JAX's own mesh path fails under JAX 0.9.0, ROADMAP C2)."""
+``test_torch_tp_forward.py``, ``test_torch_tp_families.py``): the unsharded
+port engine that takes and records JAX's batch-index draws, the banked
+blocks' inputs drawn from a JAX engine, the token-only JAX engine, and the
+run the JAX engine is held to (single device, no mesh: JAX's own mesh
+path fails under JAX 0.9.0, ROADMAP C2)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from jax.flatten_util import ravel_pytree
+
+from repro.core import server as j_srv
 from repro.data import device_sampler as j_ds
 
 from _torch_mesh_common import InjectedFedRAC
@@ -95,3 +99,30 @@ def jax_scenario(j, test, inputs, kind):
         out[("bank", lvl)] = np.asarray(o.bank[0])[:C, :spec.d]
         out[("bank_w", lvl)] = np.asarray(o.bank[1])[:C]
     return out
+
+
+class JTokenFedRAC(j_srv.FedRAC):
+    """JAX's engine on token-only data: the KD hard label is the last
+    token, evaluation is -loss."""
+
+    def _batch_from_gathered(self, g):
+        return {"tokens": g["tokens"], "y": g["tokens"][:, :, -1]}
+
+    def evaluate(self, level, params, test):
+        loss, _ = self.family.loss_and_logits(level, params, test)
+        return -float(loss)
+
+
+class JaxDraws:
+    """What ``jax_inputs`` reads of a JAX engine: the port engine's
+    assignment (asserted equal to JAX's where both run), JAX's family and
+    its ravel, so the banked inputs need no JAX engine set up."""
+
+    def __init__(self, t, family):
+        self.assignment, self.family, self._t = t.assignment, family, t
+
+    def plane_spec(self, lvl):
+        return self._t.plane_spec(lvl)
+
+    def plane_of(self, lvl, params):
+        return ravel_pytree(params)[0]

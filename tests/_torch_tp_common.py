@@ -287,8 +287,8 @@ def lm_grads_tp(mesh, case):
 def tp_rank(rank, init_trees, draws, inputs):
     """Every (family, mesh, kind) case on this rank: the run's results in
     the unsharded layout, the fedagg shapes, the model-axis plane gathers
-    of each block, and the operations' gradients; then the refusal of a
-    family the TP forward does not cover."""
+    of each block, and the operations' gradients; then how an MoE
+    engine builds on 1x2 with and without the TP forward."""
     out = {}
     for shape in MESHES:
         out[("ops", shape)] = op_grads_tp(make_mesh(shape))
@@ -314,18 +314,16 @@ def tp_rank(rank, init_trees, draws, inputs):
                 res["d_loc"] = {lvl: eng.plane_spec(lvl).d_loc
                                 for lvl in eng.assignment.members}
                 out[(name, shape, kind)] = res
-    # the MoE family on a 2D mesh: the TP forward refuses it (11c), the
-    # column-gather path takes it
+    # the MoE family on a 2D mesh: it builds with the TP forward (its TP
+    # plane layout) and with the column-gather path
     from repro_torch.configs import get_config
     V, n_data, cd, _ = lm_federation()
     moe = lm_family(get_config("granite-moe-1b-a400m", smoke=True), 0.5)
     for tp_forward in (True, False):
-        try:
-            t_srv.FedRAC(participants_from_matrix(V, n_data=n_data), cd, moe,
-                         t_srv.FLConfig(**dict(CFG, tp_forward=tp_forward)),
-                         classes=64, device="cpu", mesh=make_mesh("1x2"))
-            out[("moe", tp_forward)] = None
-        except NotImplementedError as e:
-            out[("moe", tp_forward)] = str(e)
+        eng = t_srv.FedRAC(participants_from_matrix(V, n_data=n_data), cd,
+                           moe, t_srv.FLConfig(**dict(CFG,
+                                                      tp_forward=tp_forward)),
+                           classes=64, device="cpu", mesh=make_mesh("1x2"))
+        out[("moe", tp_forward)] = (eng._tp,
+                                    type(eng.plane_spec(0)).__name__)
     return out
-

@@ -23,22 +23,24 @@ replicas side by side), 2x2 and 1x4 (``_torch_tp_common``).
 * The small LM with remat=True, and with query groups that straddle the
   ranks (2) or query heads that do not split (4): each rank's member
   gradients under the TP forward equal its chunk of the unsharded ones.
-* The MoE family on a 2D mesh refuses the TP forward naming ROADMAP item
-  11c, and runs with ``tp_forward=False``.
+* Every arch's FL family takes JAX's tensor-parallel specs (the same
+  split per leaf, at model-axis sizes 2 and 4), and a granite-moe engine
+  builds on 1x2 both with the TP forward and with ``tp_forward=False``.
 """
 import jax
 import numpy as np
-from jax.flatten_util import ravel_pytree
 import pytest
 import torch
 
+from repro.configs import get_config as j_get_config
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.core import families as j_families
 from repro.core import server as j_srv
 from repro.core.resources import participants_from_matrix as j_parts
 
 from _torch_mesh_common import InjectedFedRAC, federation, start_world
-from _torch_mesh_jax import RecordingBridgedFedRAC, jax_inputs, jax_scenario
+from _torch_mesh_jax import (JaxDraws, JTokenFedRAC, RecordingBridgedFedRAC,
+                             jax_inputs, jax_scenario)
 from _torch_threads import one_torch_thread  # noqa: F401
 from _torch_tp_common import (CFG, FAMILIES, KINDS, LM, LM_GRAD_CASES,
                               MESHES, SEED, RecordingPortFedRAC, engine_cls,
@@ -46,9 +48,12 @@ from _torch_tp_common import (CFG, FAMILIES, KINDS, LM, LM_GRAD_CASES,
                               make_engine, op_inputs, op_loss, scenario,
                               tp_rank)
 from repro_torch import interop
+from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.families import lm_family
 from repro_torch.core.plane import make_tp_plane_spec
 from repro_torch.models.attention import _local_kv_heads
+from test_torch_tp_specs import _jax_spec_list, _spec_list
 
 jax.config.update("jax_platform_name", "cpu")
 RTOL, ATOL = 2e-4, 1e-5
@@ -70,15 +75,6 @@ def _close(a, b):
                                atol=ATOL)
 
 
-class JTokenFedRAC(j_srv.FedRAC):
-    def _batch_from_gathered(self, g):
-        return {"tokens": g["tokens"], "y": g["tokens"][:, :, -1]}
-
-    def evaluate(self, level, params, test):
-        loss, _ = self.family.loss_and_logits(level, params, test)
-        return -float(loss)
-
-
 def _jax_family(name):
     if name == "lm":
         return j_families.lm_family(
@@ -96,21 +92,6 @@ def _jax_engine(name, kind):
                                 class_balanced=name != "lm"))
     return cls(j_parts(V, n_data=n_data), cd, _jax_family(name), cfg,
                classes=classes).setup()
-
-
-class _JaxDraws:
-    """What ``jax_inputs`` reads of a JAX engine: the port engine's
-    assignment (asserted equal to JAX's where both run), JAX's family and
-    its ravel, so the banked inputs need no JAX engine set up."""
-
-    def __init__(self, t, family):
-        self.assignment, self.family, self._t = t.assignment, family, t
-
-    def plane_spec(self, lvl):
-        return self._t.plane_spec(lvl)
-
-    def plane_of(self, lvl, params):
-        return ravel_pytree(params)[0]
 
 
 @pytest.fixture(scope="module")
@@ -135,7 +116,7 @@ def runs(tmp_path_factory):
                       else interop.params_to_numpy(t.family.init(
                           torch.Generator().manual_seed(SEED + lvl), lvl)))
                 for lvl in range(t.m)}
-            inputs[name, kind] = (jax_inputs(_JaxDraws(t, _jax_family(name)))
+            inputs[name, kind] = (jax_inputs(JaxDraws(t, _jax_family(name)))
                                   if kind == "buffered" else {})
             ref[name, kind] = [None, scenario(t, test, inputs[name, kind],
                                               kind),
@@ -269,8 +250,23 @@ def test_tp_lm_member_grads_match_unsharded(runs, case, shape):
         _close(res[(case, shape)], want[:, rank % m])
 
 
-def test_uncovered_family_refuses_naming_11c(runs):
+@pytest.mark.parametrize("msize", [2, 4])
+@pytest.mark.parametrize("arch", list_archs())
+def test_lm_family_specs_equal_jax(arch, msize):
+    """``lm_family(...).param_specs`` refuses no arch and gives JAX's
+    family's specs leaf by leaf, at both levels of the smoke config."""
+    fam = lm_family(get_config(arch, smoke=True), 0.5)
+    fam_j = j_families.lm_family(j_get_config(arch, smoke=True), 0.5)
+    for level in (0, 1):
+        pt = fam.init(torch.Generator().manual_seed(0), level)
+        pj = jax.eval_shape(lambda: fam_j.init(jax.random.PRNGKey(0), level))
+        got = _spec_list(pt, fam.param_specs(level, pt, msize, "model"))
+        want = _jax_spec_list(fam_j.param_specs(level, pj, msize, "model"))
+        assert got == want and any(got)
+
+
+def test_moe_family_builds_on_1x2_both_ways(runs):
     _, ranks, _ = runs
     for r in ranks:
-        assert "ROADMAP item 11c" in r[("moe", True)]
-        assert r[("moe", False)] is None
+        assert r[("moe", True)] == (True, "TPPlaneSpec")
+        assert r[("moe", False)] == (False, "PlaneSpec")
