@@ -179,15 +179,29 @@ Phases, each printing one JSON line:
               unsharded forward's but at near-ties; (b) xlstm-350m at
               full width (6 of 24 layers, chunkwise mLSTM) on the same
               federation, unsharded here, then on 1x2, held alike; (c)
-              jamba's Mamba mixer and MoE FFN at full width at module
-              level on 1x2: forward and per-member gradients under
-              ``vmap(grad)`` against the unsharded module within the
-              parity tolerance.  fedagg at the granite ranks' blocks and
-              flash at their local-head GQA shape held against their
-              plain versions and timed, fedagg at the xLSTM ranks'
-              blocks held too.  Per world: peak memory a rank,
-              seconds, collective bytes by kind.
-Then the kernels line, the card's name and power limit as nvidia-smi gives
+              jamba's Mamba mixer and MoE FFN, and xlstm-350m's mLSTM
+              and sLSTM blocks, at full width at module level on 1x2:
+              forward and per-member gradients under ``vmap(grad)``
+              against the unsharded module within the parity tolerance
+              (the mLSTM block on further seeds read, not held); (d) in
+              that world, OLMo-1B (2 of 16 layers) from a bf16 template:
+              the TP member step sees and trains bf16 leaves, its
+              gradients near the unsharded bf16 step's (C8).
+              fedagg at the granite ranks' blocks and flash at their
+              local-head GQA shape held against their plain versions and
+              timed, fedagg at the xLSTM ranks' blocks held too.  Per
+              world: peak memory a rank, seconds, collective bytes by
+              kind;
+  23. dryrun  the compile analysis (``repro_torch.launch.dryrun``): the
+              training step of OLMo-1B at full width and depth, bf16,
+              8 x 128, on the card, and granite-moe's FL round on a 2x1
+              world of two gloo ranks, each analysed first on fake
+              tensors in a fake world; the collective record and the
+              FLOPs counted on the card equal the fake ones, and the
+              card's peak lies within DRYRUN_BAND of the predicted one.
+The kernels phase also checks fedagg's JAX-named wrappers
+(``aggregate_plane``, ``aggregate_tree``) at widths that are not
+multiples of 4.  Then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and last ``{"ok": true, "device": {...}}``.  Any failure raises, so
 the script exits nonzero and prints no last line.  It exits nonzero at once
 when no CUDA card is visible or the package is not beside it.
@@ -195,6 +209,7 @@ when no CUDA card is visible or the package is not beside it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import logging
@@ -323,17 +338,55 @@ TP_LM_CHILD = "import sys, chip_smoke; chip_smoke.tp_lm_child(sys.argv[1:])"
 # sequence) tokens each
 TP_NEAR_TIE = 1e-5
 TP_MODULE_ARCH = "jamba-v0.1-52b"
+# the same module check on xlstm-350m's mLSTM and sLSTM blocks: one member
+# step's gradients under the TP forward against the unsharded module's, at
+# the parity tolerance (the federation is chaotic, so only module-level
+# gradients make a strong check of its TP forward)
+TP_XLSTM_ARCH = "xlstm-350m"
 TP_MODULE_MEMBERS, TP_MODULE_TOKENS = 2, (2, 256)
+# the mLSTM block's check is read, not held, on these further seeds of its
+# parameters and inputs, for the spread of its share of the tolerance,
+# beside the unsharded module's share between the card and the host
+TP_MLSTM_SEEDS = (4, 5, 6, 7)
+# the C8 rule on the card: one member step of OLMo-1B at full width (2 of
+# 16 layers) from a bf16 template on 1x2 trains bf16 leaves, its
+# gradients held to the unsharded bf16 step's, each leaf's relative L2
+# difference within TP_BF16_REL (``tp_bf16_member``); the bound is about
+# twice the largest reading of the first run (0.0144; the unsharded bf16
+# gradients' own difference from fp32 ones reads 0.0172)
+TP_BF16_MODEL = ("olmo-1b", dict(n_layers=2))
+TP_BF16_REL = 0.03
 TP_MODULE_CHILD = ("import sys, chip_smoke; "
                    "chip_smoke.tp_module_child(sys.argv[1:])")
+# the dryrun phase: the compile analysis's own programs (``launch.dryrun``)
+# on fake tensors, then for real on the card.  (a) the training step of
+# OLMo-1B at full width and depth, bf16, batch 8 x 128, one card; (b) the
+# FL round of granite-moe's ``fl_client_config`` on a 2x1 world (two gloo
+# ranks on the card), its 256 clients cut to 16 (8 a rank, about 23 GB a
+# rank by the analysis), each of 4 x 512 tokens.  Each real peak (the
+# bytes allocated above what the process held before its inputs) must lie
+# within DRYRUN_BAND times the predicted argument + temporary bytes
+DRYRUN_TRAIN = ("olmo-1b", 8, 128)
+DRYRUN_FL = dict(arch=MOE_ARCH, mesh=(2, 1), clients=16, local_batch=4,
+                 seq=512, steps=1)
+DRYRUN_BAND = (0.95, 1.10)
+DRYRUN_CHILD = ("import sys, chip_smoke; "
+                "chip_smoke.dryrun_fl_child(sys.argv[1:])")
 # the configurations lm_main's federation runs (``lm_main_engine``):
 # name -> (arch, its cut).  xlstm-350m keeps one superblock (5 mLSTM, 1
 # sLSTM) on the chunkwise-parallel mLSTM (the same math): the scan route
 # keeps every step's (4, 512, 512) memory per sequence for the backward,
-# about 34 GB a layer for 8 members of 4 x 256 tokens
-LM_MODELS = {"olmo": ("olmo-1b", dict(n_layers=2)),
-             "granite": (MOE_ARCH, dict(n_layers=2)),
-             "xlstm": ("xlstm-350m", dict(n_layers=6, mlstm_impl="chunk"))}
+# about 34 GB a layer for 8 members of 4 x 256 tokens.  The templates are
+# fp32: the engine trains fp32 planes, whose unsharded unravel gives fp32
+# leaves, and a TP plane unravels to the template's dtype (JAX's rules),
+# so only an fp32 template lets the tp phases hold the TP forward to the
+# unsharded run at the parity tolerance.  The initial draws are rounded
+# to the arch's own dtype (bf16) first, as its template rounded them
+# before, so every run starts from the same parameters as in earlier PRs
+LM_MODELS = {"olmo": ("olmo-1b", dict(n_layers=2, dtype="float32")),
+             "granite": (MOE_ARCH, dict(n_layers=2, dtype="float32")),
+             "xlstm": ("xlstm-350m", dict(n_layers=6, mlstm_impl="chunk",
+                                          dtype="float32"))}
 
 
 def emit(obj):
@@ -399,6 +452,56 @@ def check_fedagg(torch, ops, ref, dev, C, D):
     torch.testing.assert_close(got, want, rtol=FEDAGG_RTOL,
                                atol=FEDAGG_ATOL)
     return x, w, float((got - want).abs().max())
+
+
+# the JAX-named wrappers of fedagg at widths that are not multiples of 4:
+# aggregate_plane's (C, D) planes and aggregate_tree's leaves
+FEDAGG_WRAPPER_PLANES = ((8, 1_000_001), (3, 4_097))
+FEDAGG_WRAPPER_TREE = {"w": (8, 1023, 1021), "b": (8, 7), "n": (8, 3, 5)}
+
+
+def check_fedagg_wrappers(torch, ops, ref, dev):
+    """``aggregate_plane`` on planes, and ``aggregate_tree`` on a pytree,
+    whose widths are not multiples of 4, against the plain version on the
+    same inputs (the wrappers pad the columns for the kernel): each
+    call's kernel launches (one) and largest error."""
+    from repro_torch.core.tree import tree_leaves
+    out = {}
+    for C, D in FEDAGG_WRAPPER_PLANES:
+        g = torch.Generator(device=dev).manual_seed(C + D)
+        x = torch.randn(C, D, device=dev, generator=g)
+        w = torch.rand(C, device=dev, generator=g)
+        n = ops.weighted_aggregate.launches
+        got = ops.aggregate_plane(x, w)
+        launches = ops.weighted_aggregate.launches - n
+        want = ref.weighted_aggregate(x, w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=FEDAGG_RTOL,
+                                   atol=FEDAGG_ATOL)
+        out[f"aggregate_plane {C}x{D}"] = {
+            "launches": launches,
+            "max_abs_err": float((got - want).abs().max())}
+    g = torch.Generator(device=dev).manual_seed(7)
+    stack = {k: torch.randn(*v, device=dev, generator=g)
+             for k, v in FEDAGG_WRAPPER_TREE.items()}
+    w = torch.rand(8, device=dev, generator=g)
+    n = ops.weighted_aggregate.launches
+    got = ops.aggregate_tree(stack, w)
+    launches = ops.weighted_aggregate.launches - n
+    err = 0.0
+    for k, x in stack.items():
+        want = ref.weighted_aggregate(x.reshape(8, -1), w).reshape(
+            x.shape[1:])
+        torch.testing.assert_close(got[k], want, rtol=FEDAGG_RTOL,
+                                   atol=FEDAGG_ATOL)
+        err = max(err, float((got[k] - want).abs().max()))
+    D = sum(x[0].numel() for x in tree_leaves(stack))
+    out[f"aggregate_tree 8x{D}"] = {"launches": launches,
+                                    "max_abs_err": err}
+    bad = {k: v for k, v in out.items() if v["launches"] != 1}
+    if bad:
+        raise AssertionError(f"fedagg wrappers: not one launch {bad}")
+    return out
 
 
 def time_fedagg(torch, ops, ref, x, w):
@@ -613,8 +716,10 @@ def lm_main_engine(srv, torch, device, mesh=None, nudge=0.0,
     from repro_torch.configs import get_config
     from repro_torch.core.families import lm_family
     from repro_torch.core.tree import tree_map
+    from repro_torch.models.layers import torch_dtype
     arch, kw = LM_MODELS[model]
     lm_base = get_config(arch).replace(attn_impl="pallas", **kw)
+    draw_dtype = torch_dtype(get_config(arch).dtype)
     lm_cfg = srv.FLConfig(**LM_FL, tp_forward=tp_forward)
     t0 = time.perf_counter()
     lparts, lcd, ltest = lm_federation(participants, lm_base.vocab_size,
@@ -624,10 +729,11 @@ def lm_main_engine(srv, torch, device, mesh=None, nudge=0.0,
 
     class Engine(TokenFedRAC):
         def init_params(self, level):
-            p = super().init_params(level)
+            p = tree_map(lambda x: x.to(draw_dtype).to(torch.float32),
+                         super().init_params(level))
             if not nudge:
                 return p
-            return tree_map(lambda x: x.to(torch.float32) * (1.0 + nudge), p)
+            return tree_map(lambda x: x * (1.0 + nudge), p)
 
     lm = Engine(lparts, lcd, lm_family(lm_base, 0.5), lm_cfg,
                 classes=lm_base.padded_vocab, device=device,
@@ -1167,49 +1273,6 @@ def collective_probe_child(backend, out_path):
         Path(out_path).write_text(json.dumps(res))
 
 
-def record_collectives():
-    """Wrap the port's collective functions in this process, the
-    plane-level ones of ``launch.sharding`` (``all_reduce``,
-    ``all_gather``) and the tensor-parallel forward's of ``models.tp``
-    (``_all_reduce``, ``_all_gather``), to record each call that reaches a
-    group of more than one rank as (function, mesh axis, bytes): the
-    tensor's bytes for an all_reduce, the gathered tensor's for an
-    all_gather.  Returns the list the wrappers fill."""
-    from repro_torch.launch import sharding
-    from repro_torch.launch.mesh import axis_size
-    from repro_torch.models import tp
-    calls = []
-    s_reduce, s_gather = sharding.all_reduce, sharding.all_gather
-    t_reduce, t_gather = tp._all_reduce, tp._all_gather
-
-    def nbytes(x):
-        return x.numel() * x.element_size()
-
-    def all_reduce(mesh, x, axis):
-        if axis_size(mesh, axis) > 1:
-            calls.append(("sharding.all_reduce", axis, nbytes(x)))
-        return s_reduce(mesh, x, axis)
-
-    def all_gather(mesh, x, axis, dim):
-        n = axis_size(mesh, axis)
-        if n > 1:
-            calls.append(("sharding.all_gather", axis, n * nbytes(x)))
-        return s_gather(mesh, x, axis, dim)
-
-    def tp_all_reduce(x, op=None):
-        calls.append(("tp.all_reduce", tp.tp_ctx()[1], nbytes(x)))
-        return t_reduce(x, op)
-
-    def tp_all_gather(x, dim):
-        calls.append(("tp.all_gather", tp.tp_ctx()[1],
-                      tp.tp_size() * nbytes(x)))
-        return t_gather(x, dim)
-
-    sharding.all_reduce, sharding.all_gather = all_reduce, all_gather
-    tp._all_reduce, tp._all_gather = tp_all_reduce, tp_all_gather
-    return calls
-
-
 def collective_bytes(calls, rounds):
     """{"function@axis": bytes per round} over recorded calls."""
     out = {}
@@ -1282,6 +1345,7 @@ def launcher_sim_run(argv, shapes, nudge=0.0, probe=None):
     from repro_torch.launch import sim_run
     from repro_torch.obs import make_observability
     from repro_torch.core.tree import tree_map
+    from repro_torch.launch.hlo_analysis import record_collectives
     ShapeFedRAC, CountingSim = sim_classes(srv, sim_run.HeterogeneitySim)
     kernel = f_ops.weighted_aggregate
     aggregate_plane = aggregation.aggregate_plane
@@ -1873,6 +1937,7 @@ def tp_lm_child(argv):
     from repro_torch.kernels.fedagg import ops as f_ops
     from repro_torch.kernels.flash import ops as a_ops
     from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.hlo_analysis import record_collectives
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     torch.cuda.set_device(0)
     mesh_lib.init_world(rank, world, "env://", "gloo")
@@ -2002,16 +2067,21 @@ def routing_flips(torch, lm, base, tokens):
 def tp_module_child(argv):
     """One rank of the tp_families phase's module world (every rank on
     ``cuda:0``, over gloo, a 1x``WORLD_SIZE`` mesh): jamba's Mamba mixer
-    and MoE FFN at full width in fp32, parameters drawn on the card from a
+    and MoE FFN, and xlstm-350m's mLSTM (the federation's chunkwise
+    route) and sLSTM blocks, at full width in fp32, parameters drawn on
+    the card from a
     seeded generator (the same on every rank), ``TP_MODULE_MEMBERS``
     members of ``TP_MODULE_TOKENS`` tokens each.  The ranks take turns to
     run the unsharded module (its forward, and its per-member gradients
     under ``vmap(grad)``), each keeping its chunk of the result and its
     slice of the parameters; then all run the module tensor-parallel and
-    hold forward and gradients against what they kept.  Writes
+    hold forward and gradients against what they kept.  The mLSTM block
+    runs again on ``TP_MLSTM_SEEDS``, and each of its unsharded forwards
+    once more on the host.  Then ``tp_bf16_member``.  Writes
     ``rank<r>.json`` under ``argv[0]``: per module the worst share of the
     tolerance and the largest difference, seconds, peak memory and the
-    collective bytes of one tensor-parallel forward and backward."""
+    collective bytes of one tensor-parallel forward and backward, and the
+    bf16 member step's readings."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -2019,20 +2089,31 @@ def tp_module_child(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as mesh_lib, sharding
-    from repro_torch.models import mamba, moe, tp
+    from repro_torch.launch.hlo_analysis import record_collectives
+    from repro_torch.models import mamba, moe, tp, xlstm_blocks as xb
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     torch.cuda.set_device(0)
     mesh_lib.init_world(rank, world, "env://", "gloo")
     mesh = mesh_lib.make_sim_mesh(f"1x{world}", device_type="cuda")
     calls = record_collectives()
-    cfg = get_config(TP_MODULE_ARCH).replace(dtype="float32")
+    jcfg = get_config(TP_MODULE_ARCH).replace(dtype="float32")
+    xcfg = get_config(TP_XLSTM_ARCH).replace(**LM_MODELS["xlstm"][1])
     C, (B, S) = TP_MODULE_MEMBERS, TP_MODULE_TOKENS
     modules = {
-        "mamba": (mamba.init_mamba, lambda p, x: (
+        "mamba": (jcfg, mamba.init_mamba, lambda cfg, p, x: (
             mamba.mamba_forward(p, cfg, x), 0.0)),
-        "moe": (moe.init_moe, lambda p, x: moe.apply_moe(p, cfg, x))}
+        "moe": (jcfg, moe.init_moe, lambda cfg, p, x: moe.apply_moe(
+            p, cfg, x)),
+        "mlstm": (xcfg, xb.init_mlstm, lambda cfg, p, x: (
+            xb.mlstm_forward(p, cfg, x), 0.0)),
+        "slstm": (xcfg, xb.init_slstm, lambda cfg, p, x: (
+            xb.slstm_forward(p, cfg, x), 0.0))}
+    runs = [(seed, name, *m) for seed, (name, m) in enumerate(modules.items())]
+    runs += [(seed, f"mlstm_seed{seed}", *modules["mlstm"])
+             for seed in TP_MLSTM_SEEDS]
     out = {"rank": rank, "members": C, "tokens": [B, S], "modules": {}}
-    for seed, (name, (init, fn)) in enumerate(modules.items()):
+    for seed, name, cfg, init, fwd in runs:
+        fn = functools.partial(fwd, cfg)
         g = torch.Generator(device="cuda").manual_seed(seed)
         x = torch.randn(C, B, S, cfg.d_model, device="cuda", generator=g)
         cot = torch.randn(C, B, S, cfg.d_model, device="cuda", generator=g)
@@ -2058,6 +2139,14 @@ def tp_module_child(argv):
                 specs = sharding.tp_specs(cfg, p, world, "model")
                 y_ref, g_ref = run(p)
                 rec["unsharded_seconds"] = time.perf_counter() - t0
+                if name.startswith("mlstm"):
+                    # the unsharded module again in fp32 on the host: the
+                    # share its summation order alone gives
+                    p_host = {k: v.cpu() for k, v in p.items()}
+                    rec["card_vs_host_forward"] = tensor_share(
+                        torch, y_ref, torch.func.vmap(
+                            lambda x: fn(p_host, x)[0])(x.cpu()))
+                    del p_host
                 # this rank's chunk of the member gradients (member dim
                 # first), kept in host memory while the TP run holds the card
                 g_ref = {k: sharding.local_block(
@@ -2083,8 +2172,229 @@ def tp_module_child(argv):
         out["modules"][name] = rec
         del p, y, gr, y_ref, g_ref, x, cot
         torch.cuda.empty_cache()
+    out["bf16_member"] = tp_bf16_member(torch, mesh, world, rank)
     Path(argv[0], f"rank{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
+
+
+def tp_bf16_member(torch, mesh, world, rank):
+    """The TP plane's dtype rule (C8) on the card: ``TP_BF16_MODEL`` from
+    a bf16 template, its TP plane built for ``world`` ranks.  This rank's
+    chunk gives bf16 local leaves; one member step (``make_cluster_update``,
+    one SGD step per member) under the TP forward sees and returns bf16
+    leaves.  Its per-member gradients are held to the unsharded model's
+    in bf16 leaves (the whole plane's ``to_params``), each leaf by its
+    relative L2 difference, beside both runs' difference from the same
+    parameters in fp32 (an fp32 configuration): the share of bf16's own
+    rounding the split adds.  Returns the dtypes, the per-leaf readings,
+    the step's losses and seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.client import make_cluster_update
+    from repro_torch.core.families import lm_family
+    from repro_torch.core.plane import make_tp_plane_spec
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.models import tp
+    arch, cut = TP_BF16_MODEL
+    C, (B, S) = TP_MODULE_MEMBERS, TP_MODULE_TOKENS
+    fams = {dt: lm_family(get_config(arch).replace(dtype=dt, **cut), 0.5)
+            for dt in ("bfloat16", "float32")}
+    fam = fams["bfloat16"]
+    t0 = time.perf_counter()
+    p = fam.init(torch.Generator(device="cuda").manual_seed(300), 0)
+    spec = make_tp_plane_spec(p, fam.param_specs(0, p, world, "model"),
+                              msize=world)
+    plane = spec.to_plane(p)
+    del p
+    tokens = torch.randint(0, get_config(arch).vocab_size, (C, B, S),
+                           device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(301))
+    seen = set()
+
+    def loss_and_logits(dt, q, batch):
+        seen.update(str(x.dtype) for x in tree_leaves(q))
+        return fams[dt].loss_and_logits(0, q, batch)
+
+    def grads(dt, params):
+        def loss(q, t):
+            return loss_and_logits(dt, q, {"tokens": t})[0]
+        return torch.func.vmap(torch.func.grad(loss), in_dims=(None, 0))(
+            params, tokens)
+
+    def whole_chunk(gr):
+        """(C, ...) whole gradients -> this rank's (C, d_loc) chunk."""
+        return spec.to_plane(gr).reshape(C, world, spec.d_loc)[:, rank]
+
+    whole = spec.to_params(plane)
+    dtypes = {"whole": sorted({str(x.dtype) for x in tree_leaves(whole)})}
+    seen.clear()
+    ref16 = whole_chunk(grads("bfloat16", whole))
+    dtypes["unsharded_step"] = sorted(seen)
+    ref32 = whole_chunk(grads("float32",
+                              tree_map(lambda x: x.float(), whole)))
+    del whole
+    local = spec.local_params(plane.reshape(world, spec.d_loc)[rank])
+    dtypes["local"] = sorted({str(x.dtype) for x in tree_leaves(local)})
+    step = make_cluster_update(
+        functools.partial(loss_and_logits, "bfloat16"), 1e-3)
+    seen.clear()
+    with tp.tp_shard_ctx(mesh, "model"):
+        g_tp = spec.local_to_chunk(grads("bfloat16", local))
+        new, losses = step(tree_map(lambda x: x.expand(C, *x.shape), local),
+                           {"tokens": tokens[:, None]},
+                           torch.ones(C, 1, device="cuda"))
+    torch.cuda.synchronize()
+    dtypes["tp_step"] = sorted(seen)
+    dtypes["tp_trained"] = sorted({str(x.dtype) for x in tree_leaves(new)})
+    leaves = []
+    for shape, _, k, off, size in spec.recs:
+        a, b, t = (x[:, off:off + size] for x in (g_tp, ref16, ref32))
+        n = float(t.norm())
+        leaves.append({"shape": list(shape), "split": k,
+                       "tp_vs_bf16": float((a - b).norm()) / n,
+                       "bf16_vs_fp32": float((b - t).norm()) / n,
+                       "tp_vs_fp32": float((a - t).norm()) / n})
+    return {"arch": arch, "cut": cut, "dtypes": dtypes, "leaves": leaves,
+            "losses": losses.tolist(),
+            "finite": bool(torch.isfinite(losses).all()
+                           and all(bool(torch.isfinite(x).all())
+                                   for x in tree_leaves(new))),
+            "seconds": time.perf_counter() - t0}
+
+
+def dryrun_programs(which, mesh):
+    """The dryrun phase's program ``which`` ("train" or "fl") as
+    ``launch.dryrun`` lowers it, and the vocabulary of its tokens."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun
+    if which == "train":
+        arch, B, S = DRYRUN_TRAIN
+        cfg = get_config(arch)
+        low, _ = dryrun.lower_one(cfg, InputShape("card", S, B, "train"),
+                                  mesh)
+        return low, cfg.vocab_size
+    kw = {k: v for k, v in DRYRUN_FL.items() if k not in ("arch", "mesh")}
+    low, fcfg = dryrun.lower_fl_round(get_config(DRYRUN_FL["arch"]), mesh,
+                                      **kw)
+    return low, fcfg.vocab_size
+
+
+def dryrun_real(torch, low, vocab):
+    """Run a lowered program for real on the card: its collective record,
+    the FLOPs ``FlopCounterMode`` counts, and its peak (bytes allocated
+    above what the process held before the inputs were drawn)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch.hlo_analysis import record_collectives as rec
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = low.materialize("cuda", seed=0, vocab=vocab)
+    t0 = time.perf_counter()
+    with rec() as calls, FlopCounterMode(display=False) as fc:
+        out = low.fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    finite = bool(torch.isfinite(out[-1]).all())
+    res = {"collectives": [list(c) for c in calls],
+           "flops": int(fc.get_total_flops()),
+           "peak_bytes": torch.cuda.max_memory_allocated() - base,
+           "seconds": secs, "finite_loss": finite}
+    del args, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def dryrun_fl_child(argv):
+    """One rank of the dryrun phase's FL world (every rank on ``cuda:0``,
+    over gloo, mesh ``DRYRUN_FL["mesh"]``): the FL round run for real.
+    Writes ``rank<r>.json`` under ``argv[0]``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch import mesh as mesh_lib
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(0)
+    mesh_lib.init_world(rank, world, "env://", "gloo")
+    mesh = mesh_lib.make_host_mesh(*DRYRUN_FL["mesh"], device_type="cuda")
+    low, vocab = dryrun_programs("fl", mesh)
+    res = dict(dryrun_real(torch, low, vocab), rank=rank)
+    Path(argv[0], f"rank{rank}.json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+
+
+def phase_dryrun(torch, env):
+    """Phase 23, ``dryrun``: ``launch.dryrun``'s programs analysed on fake
+    tensors (a fake world of the mesh's size, as ``python -m
+    repro_torch.launch.dryrun`` runs them) and run for real on the card:
+    (a) OLMo-1B's training step on one card, (b) granite-moe's FL round
+    on a 2x1 world of ``dryrun_fl_child`` ranks.  The collective record of
+    each real rank equals the fake rank's call for call (op, axis,
+    bytes), the FLOPs counted on the real run equal the fake count, and
+    the real peak lies within ``DRYRUN_BAND`` of the predicted argument +
+    temporary bytes.  No kernel runs (``attn_impl="jnp"``, the plain
+    ``tensordot`` aggregate, as in JAX's dry run)."""
+    from repro_torch.launch.mesh import fake_world, make_host_mesh
+    t_phase = time.perf_counter()
+    failures = []
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    started = start_ranks(DRYRUN_CHILD, [str(out_dir)],
+                          DRYRUN_FL["mesh"][0] * DRYRUN_FL["mesh"][1], env)
+    fake = {}
+    t0 = time.perf_counter()
+    fake["train"] = dryrun_programs("train", None)[0].analyze()
+    with fake_world(2):
+        fake["fl"] = dryrun_programs(
+            "fl", make_host_mesh(*DRYRUN_FL["mesh"]))[0].analyze()
+    fake_secs = time.perf_counter() - t0
+    res, secs = wait_ranks(started, timeout=600)
+    bad = [(r, rc, err[-2000:]) for r, (rc, _, err) in enumerate(res)
+           if rc != 0]
+    if bad:
+        raise AssertionError(f"dryrun FL world: ranks failed {bad}")
+    real = {"fl": [json.loads((out_dir / f"rank{r}.json").read_text())
+                   for r in range(len(res))]}
+    low, vocab = dryrun_programs("train", None)
+    real["train"] = [dryrun_real(torch, low, vocab)]
+    del low
+    out = {}
+    for which in ("train", "fl"):
+        f = fake[which]
+        mem = f["memory"]
+        predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        want = [list(c) for c in f["collectives"]]
+        ranks = []
+        for r in real[which]:
+            ratio = r["peak_bytes"] / predicted
+            ranks.append(dict(r, peak_over_predicted=ratio,
+                              collectives=len(r["collectives"])))
+            if r["collectives"] != want:
+                failures.append(f"{which}: rank {r.get('rank', 0)}'s "
+                                "collective record differs from the fake "
+                                "world's")
+            if r["flops"] != int(f["flops"]):
+                failures.append(f"{which}: {r['flops']} FLOPs counted on "
+                                f"the card, {f['flops']} on fake tensors")
+            if not DRYRUN_BAND[0] <= ratio <= DRYRUN_BAND[1]:
+                failures.append(f"{which}: peak {r['peak_bytes']} is "
+                                f"{ratio:.4f} of the predicted {predicted}")
+            if not r["finite_loss"]:
+                failures.append(f"{which}: the loss is not finite")
+        out[which] = {"predicted_peak_bytes": predicted, "memory": mem,
+                      "flops": f["flops"], "bytes_accessed": f["bytes"],
+                      "collectives": len(want),
+                      "collective_bytes": sum(c[2] for c in want),
+                      "per_rank": ranks}
+    out["train"]["config"] = dict(zip(("arch", "batch", "seq"),
+                                      DRYRUN_TRAIN))
+    out["fl"]["config"] = DRYRUN_FL
+    emit({"phase": "dryrun", **out, "band": DRYRUN_BAND,
+          "fake_seconds": fake_secs, "fl_world_seconds": secs,
+          "seconds": time.perf_counter() - t_phase})
+    if failures:
+        raise AssertionError(f"dryrun: {failures}")
 
 
 def tensor_share(torch, got, want):
@@ -2338,9 +2648,14 @@ def phase_tp_families(torch, dev, env, moe_ref):
     near-tie), each rank's peak below moe_main's.  (b) xlstm-350m at full
     width (6 of 24 layers: 5 mLSTM, 1 sLSTM) on the same federation:
     unsharded and nudged here, then its 1x2 world, held alike.  (c)
-    jamba's Mamba mixer and MoE FFN at module level on 1x2
-    (``tp_module_child``): forward and per-member gradients against the
-    unsharded module within the parity tolerance.  Then fedagg at the
+    jamba's Mamba mixer and MoE FFN, and xlstm-350m's mLSTM and sLSTM
+    blocks, at module level on 1x2 (``tp_module_child``): forward and
+    per-member gradients against the unsharded module within the parity
+    tolerance, not the nudge rule; the mLSTM block's shares on further
+    seeds are read, not held.  (d) In the same world, C8: a bf16
+    template's TP member step sees and trains bf16 leaves, its gradients
+    within ``TP_BF16_REL`` of the unsharded bf16 step's (``tp_bf16_member``).
+    Then fedagg at the
     granite ranks' blocks and flash at their local-head GQA shape against
     their plain versions, timed, and fedagg at the xLSTM ranks' blocks
     against its plain version.  Returns each world's launches per rank
@@ -2416,15 +2731,51 @@ def phase_tp_families(torch, dev, env, moe_ref):
             worst = max([rec["forward"]["share"]]
                         + [g["share"] for g in rec["grads"].values()])
             rec["worst_share"] = worst
-            if not worst <= 1.0:
-                failures.append(f"jamba {name} rank {rk['rank']}: worst "
+            # the further mLSTM seeds are readings of the spread
+            # (PERF.md), not held
+            if not worst <= 1.0 and not name.startswith("mlstm_seed"):
+                failures.append(f"{name} module rank {rk['rank']}: worst "
                                 f"share {worst}")
-    worlds["jamba_module"] = {
-        "arch": TP_MODULE_ARCH, "mesh": "1x2", "backend": "gloo",
-        "modules": "one Mamba mixer (d_inner 8192) and one MoE FFN (16 "
-                   "experts top-2, d_ff 14336, capacity dispatch), fp32",
-        "members": TP_MODULE_MEMBERS, "tokens_per_member": TP_MODULE_TOKENS,
-        "process_seconds": secs, "per_rank": mods}
+
+    def module_world(arch, names, what):
+        return {"arch": arch, "mesh": "1x2", "backend": "gloo",
+                "modules": what, "members": TP_MODULE_MEMBERS,
+                "tokens_per_member": TP_MODULE_TOKENS,
+                "process_seconds": secs,
+                "per_rank": [dict(rk, modules={n: rk["modules"][n]
+                                               for n in names})
+                             for rk in mods]}
+
+    worlds["jamba_module"] = module_world(
+        TP_MODULE_ARCH, ("mamba", "moe"),
+        "one Mamba mixer (d_inner 8192) and one MoE FFN (16 experts top-2, "
+        "d_ff 14336, capacity dispatch), fp32")
+    worlds["xlstm_module"] = module_world(
+        TP_XLSTM_ARCH, ("mlstm", "slstm") + tuple(
+            f"mlstm_seed{s}" for s in TP_MLSTM_SEEDS),
+        "one mLSTM block (d_inner 2048, 4 heads, chunkwise) and one sLSTM "
+        "block (4 heads, its GeGLU projection), fp32; held to the parity "
+        "tolerance, not the nudge rule; the mLSTM block again on the "
+        "seeds TP_MLSTM_SEEDS")
+    worlds["xlstm_module"]["mlstm_forward_shares"] = {
+        n: [m["forward"]["share"], m["card_vs_host_forward"]["share"]]
+        for n, m in mods[0]["modules"].items() if n.startswith("mlstm")}
+    # (d) C8: a bf16 template's TP member step
+    bf16 = [rk["bf16_member"] for rk in mods]
+    for r, b in enumerate(bf16):
+        bad = {k: v for k, v in b["dtypes"].items()
+               if v != ["torch.bfloat16"]}
+        worst = max(x["tp_vs_bf16"] for x in b["leaves"])
+        b["worst_tp_vs_bf16"] = worst
+        b["worst_bf16_vs_fp32"] = max(x["bf16_vs_fp32"] for x in b["leaves"])
+        if bad or not b["finite"] or not worst <= TP_BF16_REL:
+            failures.append(f"bf16 member rank {r}: dtypes {bad}, finite "
+                            f"{b['finite']}, worst leaf {worst} against "
+                            f"{TP_BF16_REL}")
+    worlds["bf16_member"] = {"mesh": "1x2", "backend": "gloo",
+                             "members": TP_MODULE_MEMBERS,
+                             "tokens_per_member": TP_MODULE_TOKENS,
+                             "bound": TP_BF16_REL, "per_rank": bf16}
     # the kernels at the granite ranks' shapes
     granite = worlds["granite"]["per_rank"]
     for C, D in sorted({tuple(x) for rk in granite
@@ -2452,7 +2803,8 @@ def phase_tp_families(torch, dev, env, moe_ref):
     emit({"phase": "tp_families", "worlds": worlds, "kernels": out,
           "tolerance": {"rtol": PARITY_RTOL, "atol": PARITY_ATOL,
                         "nudge_factor": MESH_NUDGE_FACTOR,
-                        "near_tie": TP_NEAR_TIE}})
+                        "near_tie": TP_NEAR_TIE,
+                        "bf16_leaf_rel": TP_BF16_REL}})
     if failures:
         raise AssertionError(f"tp_families: {failures}")
     launches = {k: {f"{m}_1x2": [rk["launches"][k]
@@ -2592,10 +2944,12 @@ def main():
                                                 D)
         del x, w
         torch.cuda.empty_cache()
+    fed_wrappers = check_fedagg_wrappers(torch, f_ops, f_ref, dev)
     emit({"phase": "kernels", "kernel": "fedagg",
           "tolerance": {"rtol": FEDAGG_RTOL, "atol": FEDAGG_ATOL},
           "max_abs_err": {f"{C}x{D}": e for (C, D), e in fed_checks.items()},
-          "timed": {f"{C}x{D}": v for (C, D), v in fed_timed.items()}})
+          "timed": {f"{C}x{D}": v for (C, D), v in fed_timed.items()},
+          "wrappers": fed_wrappers})
     V_lm = lm_base.padded_vocab
     n_lm_test = len(ltest["tokens"])
     V_moe, n_moe_test = moe_base.padded_vocab, len(mtest["tokens"])
@@ -3819,6 +4173,9 @@ def main():
         "capacity": moe_shapes[0][0], "heads": mH, "kv_heads": mKV,
         "head_dim": mhd})
 
+    # 23. the compile analysis against the card ---------------------------
+    phase_dryrun(torch, env)
+
     # kernels line, card line, last line -----------------------------------
     D0 = lm_shapes[0][1]
     fed = fed_timed[(C0, D0)]
@@ -3852,6 +4209,7 @@ def main():
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")}
              for k, v in fam_tp_kernels["fedagg"].items()},
+         "wrappers": fed_wrappers,
          "max_abs_err": fed["max_abs_err"], "ms": fed["ms"],
          "plain_ms": fed["plain_ms"], "bound_ms": fed["bound_ms"],
          "bound_by": fed["bound_by"], "library_ms": fed["library_ms"]},

@@ -56,7 +56,7 @@ def aggregate_plane(plane: torch.Tensor, weights) -> torch.Tensor:
     """plane: (C, D) fp32; weights: (C,) raw or normalized -> (D,)
     sum_i w_i p_i, through the fedagg kernel on a CUDA plane."""
     w = torch.as_tensor(weights, dtype=torch.float32, device=plane.device)
-    return fedagg_ops.weighted_aggregate(plane, w.contiguous())
+    return fedagg_ops.aggregate_plane(plane, w)
 
 
 def fedavg_delta_plane(global_plane, plane, weights):

@@ -23,7 +23,6 @@ import torch
 
 from repro_torch.core import aggregation, cost_model
 from repro_torch.core.client import local_update
-from repro_torch.core.distill import ce_loss
 from repro_torch.core.server import resolve_device
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.data.sampler import sample_batches
@@ -168,7 +167,7 @@ def heterofl(parts, client_data, client_levels, test, cfg: BaselineConfig,
 
     def loss_fn(p, b):
         logits = cnn.forward(p, b["x"])
-        return ce_loss(logits, b["y"]).mean(), logits
+        return cnn.logits_loss(logits, b["y"])[0], logits
 
     test = _on(test, device)
     history = []

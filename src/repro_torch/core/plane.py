@@ -143,11 +143,11 @@ class TPPlaneSpec:
         return torch.cat(pieces, dim=-1).reshape(*lead, m * self.d_loc)
 
     def to_params(self, plane: torch.Tensor):
-        """(..., d_pad) plane -> the whole params pytree, by
-        ``PlaneSpec.to_params``'s dtype rule (where JAX's TP unravel casts
-        every leaf to its template dtype, the port keeps one rule for both
-        layouts, so a TP run trains the leaves the unsharded run does)."""
-        cast = len({r[1] for r in self.recs}) > 1
+        """(..., d_pad) plane -> the whole params pytree, every leaf cast
+        to its template dtype, as JAX's TP unravel does: a bf16 model
+        trains bf16 leaves on a TP plane, though ``PlaneSpec.to_params``
+        gives an fp32 plane of a single-dtype template fp32 leaves (the
+        two layouts' rules differ in both packages)."""
         m = self.msize
         lead = tuple(plane.shape[:-1])
         nl = len(lead)
@@ -161,21 +161,23 @@ class TPPlaneSpec:
                 split = (m,) + shape[:k] + (shape[k] // m,) + shape[k + 1:]
                 leaf = piece.reshape(*lead, *split).movedim(nl, nl + k)
                 leaf = leaf.reshape(*lead, *shape)
-            leaves.append(leaf.to(dt) if cast else leaf)
+            leaves.append(leaf.to(dt))
         return tree_unflatten(self.template, leaves)
 
     def local_params(self, chunk: torch.Tensor):
         """(..., d_loc) chunk of one model rank -> that rank's local leaves
-        (views): each split leaf's slice, each replicated leaf whole.  The
-        chunk already is the rank's (``local_block`` of the plane along the
-        model axis), so no rank index is needed; leading axes (a member
-        axis) are kept."""
+        in their template dtypes (views where that is the chunk's): each
+        split leaf's slice, each replicated leaf whole.  The chunk already
+        is the rank's (``local_block`` of the plane along the model axis),
+        so no rank index is needed; leading axes (a member axis) are
+        kept."""
         lead = tuple(chunk.shape[:-1])
         leaves = []
-        for shape, _, k, off, s_loc in self.recs:
+        for shape, dt, k, off, s_loc in self.recs:
             loc = shape if k is None else (
                 shape[:k] + (shape[k] // self.msize,) + shape[k + 1:])
-            leaves.append(chunk[..., off:off + s_loc].reshape(*lead, *loc))
+            leaves.append(chunk[..., off:off + s_loc].reshape(*lead, *loc)
+                          .to(dt))
         return tree_unflatten(self.template, leaves)
 
     def local_to_chunk(self, params) -> torch.Tensor:

@@ -74,3 +74,9 @@ def optimization_error(eps_weights, taus, eta: float, R: int,
             + 4 * eta * c.L * c.sigma ** 2 * b2 / F
             + 6 * eta ** 2 * c.L ** 2 * c.sigma ** 2 * b3
             + 12 * eta ** 2 * c.L ** 2 * c.h2 ** 2 * b4)
+
+
+def example3_constants() -> ConvergenceConstants:
+    """Paper Example 3: μ=0.7, L=1.5, B=1, E||w1-w*||=0.08, E_f=20 → R_f=6
+    (with q_o = 0.05, the upper end of the paper's L* ∈ [0.01,0.05])."""
+    return ConvergenceConstants(L=1.5, mu=0.7, w_dist_sq=0.08 ** 2)

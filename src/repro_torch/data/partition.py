@@ -42,3 +42,7 @@ def dirichlet_partition(labels: np.ndarray, n_clients: int,
             extra = pool[: min_per_client - len(o)]
             out[i] = np.sort(np.concatenate([o, extra]))
     return out
+
+
+def partition_sizes(parts: list[np.ndarray]) -> np.ndarray:
+    return np.array([len(p) for p in parts])

@@ -30,3 +30,9 @@ def class_balanced_batches(x: np.ndarray, y: np.ndarray, batch: int,
         rows.append(row)
     idx = np.stack(rows)
     return {"x": x[idx], "y": y[idx]}
+
+
+def leave_one_out(x: np.ndarray, y: np.ndarray, leave_class: int):
+    """Drop one class from training (the paper's leave-one-out metric)."""
+    keep = y != leave_class
+    return x[keep], y[keep]

@@ -2,7 +2,9 @@
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor goes to
 the kernel, or the call raises.  ``weighted_aggregate.launches`` counts the
-kernel's launches.
+kernel's launches.  ``aggregate_plane`` and ``aggregate_tree`` are JAX's
+wrappers of the same names: the kernel on a plane of any width, and on a
+client-stacked pytree.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.tree import tree_leaves, tree_unflatten
 from repro_torch.kernels import _build
 from repro_torch.kernels.fedagg import ref
 
@@ -51,3 +54,35 @@ def weighted_aggregate(plane: torch.Tensor, weights: torch.Tensor):
 
 
 weighted_aggregate.launches = 0
+
+
+def aggregate_plane(plane: torch.Tensor, weights: torch.Tensor):
+    """Weighted aggregate of a (C, D) plane of any D -> (D,) fp32.  The
+    kernel loads four columns at a time, so a D that is not a multiple of
+    4 is zero-padded to one and the result sliced back (JAX's wrapper
+    halves its block instead); padded columns contract to nothing."""
+    plane = plane.to(torch.float32)
+    weights = weights.to(torch.float32).contiguous()
+    D = plane.shape[1]
+    pad = (-D) % 4
+    if pad:
+        plane = torch.nn.functional.pad(plane, (0, pad))
+    return weighted_aggregate(plane.contiguous(), weights)[:D]
+
+
+def aggregate_tree(params_stack, weights: torch.Tensor):
+    """params_stack: a pytree whose leaves share a leading client axis C
+    -> the aggregated pytree: every leaf flattened to (C, -1), the pieces
+    concatenated into one fp32 plane, aggregated, and each leaf cut back
+    out in its own shape and dtype."""
+    leaves = tree_leaves(params_stack)
+    C = leaves[0].shape[0]
+    flats = [x.reshape(C, -1).to(torch.float32) for x in leaves]
+    out = aggregate_plane(torch.cat(flats, dim=1), weights)
+    parts, pos = [], 0
+    for leaf, f in zip(leaves, flats):
+        sz = f.shape[1]
+        parts.append(out[pos:pos + sz].reshape(leaf.shape[1:])
+                     .to(leaf.dtype))
+        pos += sz
+    return tree_unflatten(params_stack, parts)

@@ -11,9 +11,13 @@ at import.
 ``init_world`` joins (or starts) the process group a mesh lives on, with
 an explicit rendezvous (``tcp://localhost:<port>`` or ``file://<path>``):
 nothing on a one-host machine tells a process of a cluster.
-``make_production_mesh`` waits for ROADMAP item 12.
+``make_production_mesh`` builds the compile analysis's (16, 16) or
+(2, 16, 16) mesh inside ``fake_world``: one process stands for rank 0 of
+a world of 256 or 512 ranks that exist only in a fake process group.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -75,6 +79,48 @@ def make_host_mesh(n_data: int = 1, n_model: int = 1,
                          f"{n_data * n_model} ranks, the world has {world}")
     ranks = torch.arange(world).reshape(n_data, n_model)
     return DeviceMesh(device_type, ranks, mesh_dim_names=("data", "model"))
+
+
+@contextmanager
+def fake_world(size: int, rank: int = 0):
+    """A process group of ``size`` ranks in which this process is
+    ``rank`` and no other rank exists: PyTorch's fake backend (``"fake"``
+    on a ``FakeStore``), whose collectives return at once and move no
+    data.  ``torch.distributed._tools.fake_collectives`` is loaded so that
+    collectives on fake tensors dispatch.  The group is destroyed on
+    exit; a world that already exists is refused."""
+    import torch.distributed as dist
+    # registers the "fake" backend and its store
+    from torch.testing._internal.distributed import fake_pg
+    import torch.distributed._tools.fake_collectives  # noqa: F401
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group already exists")
+    dist.init_process_group("fake", store=fake_pg.FakeStore(), rank=rank,
+                            world_size=size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: (16, 16) ``("data", "model")``, or (2, 16, 16)
+    with ``"pod"`` in front, over an initialized world of 256 or 512 ranks
+    (``fake_world`` for the compile analysis).  Its device type is
+    ``"cpu"``, which the fake backend takes with or without a card, so the
+    analysis runs alike on both machines."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(f"the production mesh needs a world of {n} "
+                           "ranks (launch.mesh.fake_world)")
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=axes)
 
 
 def parse_sim_mesh_shape(shape) -> tuple:

@@ -30,6 +30,8 @@ runs on the local heads, and the row-parallel ``wo`` ends in one
 or a ``wk`` split that cuts through a head), the cut tensor is gathered
 over the model axis: K/V whole before the local query heads pick theirs,
 or, when the query heads do not split, the attention whole on every rank.
+``attn_decode`` has the one body too: this rank's query heads against a
+whole or head-dim-split cache, the whole step with no context.
 """
 from __future__ import annotations
 
@@ -51,15 +53,6 @@ def init_attn(generator, cfg: ModelConfig, dtype):
         p["q_norm"] = torch.ones((cfg.head_dim,), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones((cfg.head_dim,), dtype=dtype, device=dev)
     return p
-
-
-def _project_qkv(p, cfg: ModelConfig, x, positions):
-    B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    q, k = _norm_rope(cfg, q, k, positions, p.get("q_norm"), p.get("k_norm"))
-    return q, k, v
 
 
 def _norm_rope(cfg: ModelConfig, q, k, positions, q_norm, k_norm):
@@ -229,9 +222,13 @@ def init_cross_attn(generator, cfg: ModelConfig, dtype):
 
 
 def cross_kv(p, cfg: ModelConfig, enc_out):
+    """The encoder output's K/V heads, this rank's under a split of
+    ``wk`` / ``wv`` (the heads then enter per-rank computation)."""
     B, T, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ p["wv"]).reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    if tp.splits(cfg.kv_dim):
+        enc_out = tp.copy_to_tp(enc_out)
+    k = (enc_out @ p["wk"]).reshape(B, T, -1, cfg.head_dim)
+    v = (enc_out @ p["wv"]).reshape(B, T, -1, cfg.head_dim)
     return k, v
 
 
@@ -239,11 +236,15 @@ def cross_attn_forward(p, cfg: ModelConfig, x, k, v):
     """x: (B,S,d); k, v: (B,T,KV,hd) from the encoder.  No positional
     encoding."""
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    split = tp.splits(cfg.q_dim)
+    if split:
+        x = tp.copy_to_tp(x)
+    q = (x @ p["wq"]).reshape(B, S, -1, cfg.head_dim)
     mask = torch.ones((1, 1, S, k.shape[1]), dtype=torch.bool,
                       device=x.device)
     out = _sdpa(cfg, q, k, v, mask)
-    return out.reshape(B, S, cfg.q_dim) @ p["wo"]
+    y = out.reshape(B, S, q.shape[2] * cfg.head_dim) @ p["wo"]
+    return tp.reduce_from_tp(y) if split else y
 
 
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -255,17 +256,61 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def attn_decode(p, cfg: ModelConfig, cache, x, pos, *, local: bool = False):
     """x: (B,1,d); pos: the current position (an int).  Returns
-    (out, cache), the cache a new dict of new tensors."""
+    (out, cache), the cache a new dict of new tensors.
+
+    Under a tensor-parallel context, one decode step of this rank's query
+    heads (``wq`` / ``wo`` split as in ``attn_forward``; the query heads
+    must divide the model axis when ``wq`` splits) against a cache that
+    holds every K/V head, either whole or split along the head dim
+    (``launch.sharding.cache_specs``' "batch" and "hd" layouts; the
+    cache's last dim says which).  The new token's K/V are gathered whole
+    before they are written.  With the head dim split, every rank scores
+    all heads on its slice of it: the partial scores are summed over the
+    ranks, and the slices of the output gathered.  With no context
+    nothing splits, every tp operation is an identity, and this is the
+    whole decode step."""
     B = x.shape[0]
     pos = int(pos)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    m, r = tp.tp_size(), tp.tp_rank()
+    q_split, kv_split = tp.splits(cfg.q_dim), tp.splits(cfg.kv_dim)
+    if q_split and H % m:
+        raise ValueError(f"decode: {H} query heads do not split {m} ways")
+    Hl = H // m if q_split else H
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    xd = tp.copy_to_tp(x)
+    q = ((xd if q_split else x) @ p["wq"]).reshape(B, 1, Hl, hd)
+    k, v = (tp.gather_from_tp(t) if kv_split else t
+            for t in ((xd if kv_split else x) @ p[w] for w in ("wk", "wv")))
+    q, k = _norm_rope(cfg, q, k.reshape(B, 1, KV, hd), positions,
+                      p.get("q_norm"), p.get("k_norm"))
+    v = v.reshape(B, 1, KV, hd)
+    dh = cache["k"].shape[-1]
+    split_hd = dh != hd
+    if split_hd:
+        k, v = k[..., r * dh:(r + 1) * dh], v[..., r * dh:(r + 1) * dh]
     at = torch.tensor([pos], device=x.device)
-    k = cache["k"].index_copy(1, at, k_new.to(cache["k"].dtype))
-    v = cache["v"].index_copy(1, at, v_new.to(cache["v"].dtype))
-    j = torch.arange(k.shape[1], device=x.device)
-    m = j <= pos
+    kc = cache["k"].index_copy(1, at, k.to(cache["k"].dtype))
+    vc = cache["v"].index_copy(1, at, v.to(cache["v"].dtype))
+    j = torch.arange(kc.shape[1], device=x.device)
+    mask = j <= pos
     if local and cfg.sliding_window > 0:
-        m = m & ((pos - j) < cfg.sliding_window)
-    out = _sdpa(cfg, q, k, v, m[None, None, None])               # (1,1,1,T)
-    return out.reshape(B, 1, cfg.q_dim) @ p["wo"], {"k": k, "v": v}
+        mask = mask & ((pos - j) < cfg.sliding_window)
+    if not split_hd:
+        sel = _local_kv_heads(cfg, Hl, r) if q_split else slice(None)
+        out = _sdpa(cfg, q, kc[:, :, sel], vc[:, :, sel],
+                    mask[None, None, None])
+    else:
+        qa = tp.gather_from_tp(q, 2) if q_split else q      # (B,1,H,hd)
+        qs = qa[..., r * dh:(r + 1) * dh].reshape(B, 1, KV, H // KV, dh)
+        scores = tp.reduce_from_tp(torch.einsum(
+            "bskgd,btkd->bkgst", qs, kc).to(torch.float32)) * hd ** -0.5
+        scores = softcap(scores, cfg.attn_softcap)
+        scores = torch.where(mask[None, None, None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(vc.dtype)
+        out = tp.gather_from_tp(torch.einsum(
+            "bkgst,btkd->bskgd", probs, vc).reshape(B, 1, H, dh), -1)
+        if q_split:
+            out = out[:, :, r * Hl:(r + 1) * Hl]
+    y = out.reshape(B, 1, Hl * hd) @ p["wo"]
+    return (tp.reduce_from_tp(y) if q_split else y), {"k": kc, "v": vc}

@@ -124,5 +124,21 @@ def _relu_pool(x, i: int):
     return x
 
 
+def loss_fn(params, batch):
+    """(mean cross-entropy, accuracy) of ``batch = {"x", "y"}``."""
+    return logits_loss(forward(params, batch["x"]), batch["y"])
+
+
+def logits_loss(logits, labels):
+    """``loss_fn``'s (mean cross-entropy, accuracy) from the logits, for a
+    caller that keeps them."""
+    labels = labels.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, labels[:, None])[:, 0]
+    loss = torch.mean(lse - picked)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+    return loss, acc
+
+
 def param_count(params) -> int:
     return sum(p.numel() for p in tree_leaves(params))

@@ -9,6 +9,13 @@ cross-attention.  Encoder and decoder blocks are stacked per layer
 (``enc_blocks``, ``dec_blocks``), and the decode cache holds per-layer
 self-attention K/V plus the static cross-attention K/V (``xk``, ``xv``),
 each with a leading layer axis, all as in JAX.
+
+Under a tensor-parallel context (``models.tp``) the full-sequence forward
+runs this rank's slices as the decoder-only model does: attention heads,
+the MLP's hidden width and the vocabulary (embedding lookup and logits)
+split; cross-attention's query heads read the K/V heads of the same
+slice.  It needs the query and K/V head counts to divide the model axis.
+The decode step has no such split.
 """
 from __future__ import annotations
 
@@ -18,10 +25,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import tp
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        init_mlp, init_norm, softcap,
                                        torch_dtype)
-from repro_torch.models.transformer import stack
+from repro_torch.models.transformer import embed_tokens, stack, vocab_split
 
 
 def _init_enc_block(generator, cfg: ModelConfig, dtype):
@@ -76,7 +84,7 @@ def encode(cfg: ModelConfig, params, embeds):
         x = apply_norm(cfg, p["norm1"], h)
         h = h + attn.attn_forward(p["attn"], cfg, x, positions, causal=False)
         x = apply_norm(cfg, p["norm2"], h)
-        h = h + apply_mlp(p["ffn"], x)
+        h = h + apply_mlp(p["ffn"], x, cfg.d_ff)
     return apply_norm(cfg, params["enc_norm"], h)
 
 
@@ -87,11 +95,13 @@ def _dec_body(cfg: ModelConfig, h, p, positions, kv):
     x = apply_norm(cfg, p["norm_x"], h)
     h = h + attn.cross_attn_forward(p["cross"], cfg, x, k, v)
     x = apply_norm(cfg, p["norm2"], h)
-    return h + apply_mlp(p["ffn"], x)
+    return h + apply_mlp(p["ffn"], x, cfg.d_ff)
 
 
 def _logits(cfg: ModelConfig, params, h):
     h = apply_norm(cfg, params["dec_norm"], h)
+    if vocab_split(cfg):
+        h = tp.copy_to_tp(h)
     logits = (h @ params["embed"].T.to(h.dtype)) * cfg.logit_scale
     return softcap(logits, cfg.final_softcap)
 
@@ -103,7 +113,7 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds, positions=None):
     B, S = tokens.shape
     if positions is None:
         positions = _positions(B, S, tokens.device)
-    h = F.embedding(tokens, params["embed"]) * cfg.embed_scale
+    h = embed_tokens(cfg, params, tokens)
     for i in range(cfg.n_layers):
         p = _layer(params["dec_blocks"], i)
         h = _dec_body(cfg, h, p, positions,

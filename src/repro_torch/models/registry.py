@@ -9,11 +9,9 @@ decode, a torch copy of ``repro.models.registry``.
 """
 from __future__ import annotations
 
-import torch
-
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_leaves
-from repro_torch.models import attention, encdec, transformer
+from repro_torch.models import encdec, transformer
 
 
 def is_encdec(cfg: ModelConfig) -> bool:
@@ -42,13 +40,7 @@ def loss_fn(cfg: ModelConfig, params, batch):
     if is_encdec(cfg):
         logits, _ = encdec.forward(cfg, params, batch["tokens"],
                                    embeds=batch["embeds"])
-        lg = logits[:, :-1].to(torch.float32)
-        lbl = batch["tokens"][:, 1:].long()
-        lg = torch.where(transformer.vocab_mask(cfg, lg.device)[None, None],
-                         lg, attention.NEG_INF)
-        lse = torch.logsumexp(lg, dim=-1)
-        picked = torch.gather(lg, -1, lbl[..., None])[..., 0]
-        ce = torch.mean(lse - picked)
+        ce = transformer.lm_ce(cfg, logits, batch["tokens"])
         return ce, ce
     return transformer.next_token_loss(cfg, params, batch["tokens"],
                                        embeds=batch.get("embeds"))

@@ -291,15 +291,28 @@ def vocab_mask(cfg: ModelConfig, device=None):
 
 def next_token_loss(cfg: ModelConfig, params, tokens, *, embeds=None):
     """Causal LM loss over the token portion (frontend positions
-    excluded).  Returns (total, ce), total adding the MoE aux term."""
+    excluded).  Returns (total, ce), total adding the MoE aux term.  Under
+    a tensor-parallel context whose logits are this rank's vocabulary
+    slice (``vocab_split``) the loss is vocab-parallel."""
     logits, aux = forward(cfg, params, tokens, embeds=embeds)
     n_front = 0 if embeds is None else embeds.shape[1]
-    logits = logits[:, n_front:, :]
+    ce = lm_ce(cfg, logits[:, n_front:, :], tokens)
+    return ce + cfg.router_aux_coef * aux, ce
+
+
+def lm_ce(cfg: ModelConfig, logits, tokens):
+    """Mean next-token CE of logits (B, S, V_pad) over the valid
+    vocabulary; vocab-parallel when the logits are this rank's vocabulary
+    slice (``vocab_split``)."""
     lg = logits[:, :-1].to(torch.float32)
     lbl = tokens[:, 1:].long()
-    lg = torch.where(vocab_mask(cfg, lg.device)[None, None], lg,
-                     attn.NEG_INF)
+    mask = vocab_mask(cfg, lg.device)
+    if vocab_split(cfg):
+        v = lg.shape[-1]
+        mask = mask[tp.tp_rank() * v:(tp.tp_rank() + 1) * v]
+        lg = torch.where(mask[None, None], lg, attn.NEG_INF)
+        return torch.mean(tp.vocab_parallel_ce(lg, lbl))
+    lg = torch.where(mask[None, None], lg, attn.NEG_INF)
     lse = torch.logsumexp(lg, dim=-1)
     picked = torch.gather(lg, -1, lbl[..., None])[..., 0]
-    ce = torch.mean(lse - picked)
-    return ce + cfg.router_aux_coef * aux, ce
+    return torch.mean(lse - picked)

@@ -152,16 +152,16 @@ def level_routing(name, level, params, toks):
 
 
 # ------------------------------------------------------------ the rank
-def tp_families_rank(rank, init_trees, draws, inputs):
-    """Every member-gradient case on its meshes, then every (family, mesh,
-    kind) run of the dispatch path: the run's results in the unsharded
-    layout, and the fedagg shapes."""
+def tp_families_rank(rank, init_trees, draws, inputs, grad_cases, runs):
+    """The member-gradient cases ``grad_cases`` on their meshes, then the
+    (family, mesh, kind) runs ``runs`` of the dispatch path: the run's
+    results in the unsharded layout, and the fedagg shapes."""
     out = {}
     for shape in GRAD_MESHES:
-        for name, level in GRAD_CASES:
+        for name, level in grad_cases:
             out[(name, level, shape)] = grads_tp(make_mesh(shape), name,
                                                  level)
-    for name, shape, kind in RUNS:
+    for name, shape, kind in runs:
         InjectedFedRAC.init_trees = init_trees[name]
         InjectedFedRAC.draws = draws[name]
         eng, test = make_engine(InjectedFedRAC, name, kind,
