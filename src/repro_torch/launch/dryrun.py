@@ -39,16 +39,23 @@ JAX's (``repro/launch/dryrun.py::analyze``) but for ``fits_16g``, a TPU's
 HBM, which is ``fits_80g`` here: the H100's 80 GB.  Every number is a
 prediction from fake tensors and the H100's datasheet, not a measurement.
 
-Decode on a model axis of more than one rank splits attention's query
-heads (``models.attention``'s tensor-parallel decode) over a cache of
-``cache_shard`` "batch" (whole on every model rank) or "hd" (split along
-the head dim).  Not ported yet (ROADMAP §A), each reported by
-``run_one`` as skipped with its reason: sequence-sharded decode
-(``cache_shard="seq"``, the default, and ``long_500k``'s batch of 1),
-the decode of Mamba, xLSTM and enc-dec mixers on such an axis, and
-``shard_mode="fsdp"``.  The xLSTM's recurrent cells step through the
-sequence in a Python loop; a program of more than ``MAX_LOOP_STEPS`` such
-steps (xlstm-350m at 4k tokens) is not traced either.
+Decode splits every mixer tensor-parallel over the rank's block of the
+cache (``cache_specs``' layouts: "batch", "hd" and "seq"; a batch of 1
+splits the sequence over the data axes too): attention's query heads (or,
+where they do not divide the axis or the sequence splits, every head
+against the rank's slice, the partial softmax combined by ``all_reduce``;
+``models.attention.seq_shard_ctx``), Mamba's and the xLSTM cells' state
+along its split dim, and the enc-dec model's cross-attention over its
+cached encoder K/V alike.  In ``fsdp`` mode (``models.fsdp``) each
+parameter is this rank's slice, all-gathered where it is used (inside a
+remat'd superblock's recomputation too) and its gradient reduce-scattered;
+the batch splits over the data and model axes, and the decode gathers
+each leaf and cuts it to its tensor-parallel block.  A program whose
+per-token Python loop is longer than ``MAX_LOOP_STEPS`` (xlstm-350m at 4k
+and 32k tokens) is traced at the lengths ``SEQ_EXTRAPOLATE`` and its
+counts extrapolated along the sequence; its row says
+``seq_extrapolated``.  Skipped, as in JAX: ``specs.applicable``'s
+long_500k for full-attention archs.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k [--multi-pod]
@@ -58,6 +65,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -75,7 +83,7 @@ from repro_torch.launch import hlo_analysis, sharding, specs
 from repro_torch.launch.mesh import (axis_size, fake_world,
                                      make_production_mesh, mesh_shape)
 from repro_torch.launch.sharding import P
-from repro_torch.models import registry, tp
+from repro_torch.models import fsdp, registry, tp
 from repro_torch.models.layers import torch_dtype
 from repro_torch.optim import optimizers
 
@@ -83,9 +91,12 @@ HBM_BYTES = 80e9          # one H100 SXM5 80GB
 
 
 # a per-token Python loop (the sLSTM cell, the mLSTM's "scan" route) of
-# more steps than this, summed over its layers, is not traced: at about
-# 0.3 ms a fake op it would take hours
+# more steps than this, summed over its layers, is not traced at its
+# length (at about 0.3 ms a fake op it would take hours): the program is
+# traced at the two sequence lengths SEQ_EXTRAPOLATE and its counts
+# extrapolated along the sequence (``_measure``)
 MAX_LOOP_STEPS = 1 << 16
+SEQ_EXTRAPOLATE = (64, 128)
 
 
 class NotPorted(Exception):
@@ -108,6 +119,14 @@ def _tp_ctx(cfg: ModelConfig, mesh):
             or axis_size(mesh, "model") == 1):
         return nullcontext()
     return tp.tp_shard_ctx(mesh, "model")
+
+
+def _fsdp_ctx(cfg: ModelConfig, mesh, p_spec, tp_spec=None):
+    """The FSDP context of an ``fsdp``-mode program: its leaves are
+    slices by ``p_spec``, gathered per use (``models.fsdp``)."""
+    if mesh is None or cfg.shard_mode != "fsdp":
+        return nullcontext()
+    return fsdp.fsdp_ctx(mesh, p_spec, tp_spec)
 
 
 def _value_and_grad(fn, params):
@@ -147,14 +166,28 @@ def _mean_over(mesh, x, axes):
     return _sum_over(mesh, x.clone(), axes) / n
 
 
-def _sync_grads(mesh, grads, axes):
-    """The mean of the ranks' gradients over the batch's split axes."""
-    if mesh is None or not axes:
+def _sync_grads(mesh, grads, axes, fsdp_spec=None):
+    """The mean of the ranks' gradients over the batch's split axes.
+    ``fsdp_spec``: the leaves are FSDP slices whose gradients the gather's
+    backward already summed over their split axes (a reduce-scatter), so
+    each is summed over the other batch axes only, and divided by the
+    ranks of both."""
+    if mesh is None:
         return grads
-    n = 1
-    for a in axes:
-        n *= axis_size(mesh, a)
-    return tree_map(lambda g: _sum_over(mesh, g, axes).div_(n), grads)
+    leaves = tree_leaves(grads)
+
+    def sync(g, s):
+        split = _split_axes(mesh, s)
+        n = 1
+        for a in set(split) | set(axes):
+            n *= axis_size(mesh, a)
+        if n == 1:
+            return g
+        return _sum_over(mesh, g, [a for a in axes if a not in split]).div_(n)
+
+    return tree_unflatten(grads, [sync(g, s) for g, s in zip(
+        leaves, _spec_leaves(fsdp_spec) if fsdp_spec is not None
+        else [None] * len(leaves))])
 
 
 def _clip(grads, max_norm: float, mesh, p_spec):
@@ -221,11 +254,13 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4, *, mesh=None,
     (params, opt_state, ce), the first two updated in place."""
     opt = optimizers.adamw()
 
+    fsdp_spec = p_spec if cfg.shard_mode == "fsdp" else None
+
     def train_step(params, opt_state, batch):
-        with _tp_ctx(cfg, mesh):
+        with _tp_ctx(cfg, mesh), _fsdp_ctx(cfg, mesh, p_spec):
             (_, ce), grads = _value_and_grad(
                 lambda p: registry.loss_fn(cfg, p, batch), params)
-        grads = _sync_grads(mesh, grads, batch_axes)
+        grads = _sync_grads(mesh, grads, batch_axes, fsdp_spec)
         grads = _clip(grads, 1.0, mesh, p_spec)
         params, opt_state = opt.update(grads, opt_state, params, lr)
         return params, opt_state, _mean_over(mesh, ce, batch_axes)
@@ -233,27 +268,47 @@ def make_train_step(cfg: ModelConfig, lr: float = 1e-4, *, mesh=None,
     return train_step, opt
 
 
-def make_prefill_step(cfg: ModelConfig, *, mesh=None):
+def make_prefill_step(cfg: ModelConfig, *, mesh=None, p_spec=None):
     def prefill(params, batch):
-        with torch.no_grad(), _tp_ctx(cfg, mesh):
+        with torch.no_grad(), _tp_ctx(cfg, mesh), _fsdp_ctx(cfg, mesh,
+                                                             p_spec):
             logits, _ = registry.forward(cfg, params, batch)
         return logits[:, -1]
     return prefill
 
 
-def make_serve_step(cfg: ModelConfig, *, mesh=None):
+def make_serve_step(cfg: ModelConfig, *, mesh=None, seq_axes=None,
+                    p_spec=None, tp_spec=None, token_axes=()):
     """One rank's decode step: ``serve_step(params, cache, token, pos)``
-    -> (logits, cache), the attention split by ``models.attention``'s
-    tensor-parallel decode on a cache of the "batch" or "hd" layout."""
+    -> (logits, cache), every mixer split by its tensor-parallel decode
+    over the rank's cache block; ``seq_axes`` ({cache leaf name: axes},
+    ``attention.seq_shard_ctx``) where the cache's sequence splits.  In
+    ``fsdp`` mode the parameters are slices by ``p_spec``: each is
+    gathered where it is used and cut to its ``tp_spec`` block, and the
+    token rows split over ``token_axes`` beyond the cache's batch block
+    are gathered first, so the decode runs tensor-parallel as in ``tp``
+    mode."""
+    from repro_torch.models import attention
+    fsdp_mode = mesh is not None and cfg.shard_mode == "fsdp"
+
     def serve_step(params, cache, token, pos):
-        with torch.no_grad(), _tp_ctx(cfg, mesh):
+        seq = (attention.seq_shard_ctx(mesh, seq_axes) if seq_axes
+               else nullcontext())
+        ctx = _tp_ctx(cfg, mesh)
+        if fsdp_mode:
+            for a in reversed(token_axes):
+                token = sharding.all_gather(mesh, token, a, 0)
+            ctx = (tp.tp_shard_ctx(mesh, "model")
+                   if axis_size(mesh, "model") > 1 else nullcontext())
+        with torch.no_grad(), ctx, seq, _fsdp_ctx(cfg, mesh, p_spec,
+                                                  tp_spec):
             return registry.decode_step(cfg, params, cache, token, int(pos))
     return serve_step
 
 
 def make_kd_train_step(cfg_t: ModelConfig, cfg_s: ModelConfig,
                        lr: float = 1e-4, chunk: int = 0, *, mesh=None,
-                       s_spec=None, batch_axes=()):
+                       s_spec=None, batch_axes=(), t_spec=None):
     """Master-slave KD training step (the paper's technique on an LM):
     teacher forward (frozen) + student update under the Hinton KD loss over
     the full (padded-)vocab logits.  chunk>0 computes the loss in sequence
@@ -264,7 +319,7 @@ def make_kd_train_step(cfg_t: ModelConfig, cfg_s: ModelConfig,
     opt = optimizers.adamw()
 
     def full_loss(sp, t_params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), _fsdp_ctx(cfg_t, mesh, t_spec):
             t_logits, _ = registry.forward(cfg_t, t_params, batch)
         s_logits, aux = registry.forward(cfg_s, sp, batch)
         lbl = batch["tokens"][:, 1:]
@@ -272,13 +327,14 @@ def make_kd_train_step(cfg_t: ModelConfig, cfg_s: ModelConfig,
         return l + cfg_s.router_aux_coef * aux, l
 
     def head(cfg, params, h):
-        w = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        w = fsdp.gather(params[name], (name,))
         if transformer.vocab_split(cfg):
             h = tp.copy_to_tp(h)
         return h @ w.T.to(h.dtype)
 
     def chunked_loss(sp, t_params, batch):
-        with torch.no_grad():
+        with torch.no_grad(), _fsdp_ctx(cfg_t, mesh, t_spec):
             h_t, _ = transformer.forward(cfg_t, t_params, batch["tokens"],
                                          return_hidden=True)
         h_s, aux = transformer.forward(cfg_s, sp, batch["tokens"],
@@ -291,7 +347,7 @@ def make_kd_train_step(cfg_t: ModelConfig, cfg_s: ModelConfig,
         total = torch.zeros((), dtype=torch.float32, device=h_s.device)
         for c in range(n):
             sl = slice(c * chunk, (c + 1) * chunk)
-            with torch.no_grad():
+            with torch.no_grad(), _fsdp_ctx(cfg_t, mesh, t_spec):
                 tl = head(cfg_t, t_params, h_t[:, sl])
             sl_s = head(cfg_s, sp, h_s[:, sl])
             total = total + _kd_vocab(cfg_s, sl_s, toks[:, c * chunk + 1:
@@ -301,7 +357,7 @@ def make_kd_train_step(cfg_t: ModelConfig, cfg_s: ModelConfig,
         # token count, the (S-1) mod chunk remainder as a chunk of its own
         l = total * chunk
         if tail:
-            with torch.no_grad():
+            with torch.no_grad(), _fsdp_ctx(cfg_t, mesh, t_spec):
                 tl = head(cfg_t, t_params, h_t[:, cut:S - 1])
             sl_s = head(cfg_s, sp, h_s[:, cut:S - 1])
             l = l + tail * _kd_vocab(cfg_s, sl_s, toks[:, cut + 1:], tl)
@@ -317,10 +373,11 @@ def make_kd_train_step(cfg_t: ModelConfig, cfg_s: ModelConfig,
     loss = chunked_loss if chunk else full_loss
 
     def step(loss_fn, teacher, s_params, opt_state, batch):
-        with _tp_ctx(cfg_s, mesh):
+        with _tp_ctx(cfg_s, mesh), _fsdp_ctx(cfg_s, mesh, s_spec):
             (_, l), grads = _value_and_grad(
                 lambda p: loss_fn(p, teacher, batch), s_params)
-        grads = _sync_grads(mesh, grads, batch_axes)
+        grads = _sync_grads(mesh, grads, batch_axes,
+                            s_spec if cfg_s.shard_mode == "fsdp" else None)
         grads = _clip(grads, 1.0, mesh, s_spec)
         s_params, opt_state = opt.update(grads, opt_state, s_params, lr)
         return s_params, opt_state, _mean_over(mesh, l, batch_axes)
@@ -424,10 +481,12 @@ class Lowered:
                 full = torch.randn(x.shape, generator=g, **kw).mul_(0.02)
             else:
                 full = torch.randint(0, vocab, x.shape, generator=g, **kw)
-            if self.mesh is not None:
-                full = sharding.local_block(self.mesh, full,
-                                            sharding.spec_dims(s))
-            return full.contiguous()
+            if self.mesh is None:
+                return full
+            # a copy of the block, so the whole leaf is freed (a
+            # contiguous view would keep it)
+            return sharding.local_block(self.mesh, full, sharding.spec_dims(
+                s)).clone(memory_format=torch.contiguous_format)
 
         return tuple(_zip_map(lambda x, s, i=i: draw(i, x, s), a, sp)
                      for i, (a, sp) in enumerate(zip(self.args,
@@ -519,28 +578,18 @@ def _lead_axes(spec) -> tuple:
     return () if e is None else (e,) if isinstance(e, str) else tuple(e)
 
 
-def _check_decode(cfg: ModelConfig, mesh, c_spec):
-    """Raise ``NotPorted`` for a decode program the port does not build:
-    a cache whose sequence dim is split (``cache_shard="seq"`` on a model
-    axis, or a batch of 1 on any axis), and on a model axis of more than
-    one rank any mixer but attention, or query heads that do not divide
-    the axis."""
-    if mesh is None:
-        return
-    for s in _spec_leaves(c_spec):
-        if s is not None and len(s) == 5 and _split_axes(
-                mesh, sharding.P(None, None, s[2])):
-            raise NotPorted("sequence-sharded decode (cache_shard='seq' on "
-                            "a model axis, or a batch of 1) is not ported")
-    m = axis_size(mesh, "model")
-    if m == 1:
-        return
-    if cfg.family == "encdec" or any(
-            k not in ("attn", "attn_local") for k in cfg.block_pattern):
-        raise NotPorted("only attention decodes tensor-parallel; "
-                        f"{cfg.family} mixers do not")
-    if cfg.q_dim % m == 0 and cfg.n_heads % m:
-        raise NotPorted(f"{cfg.n_heads} query heads do not split {m} ways")
+def _cache_seq_axes(c_spec) -> dict:
+    """{"k" / "xk": the axes the sequence dim (2) of those cache leaves
+    splits along}, from the cache's specs."""
+    out = {}
+
+    def visit(path, s):
+        name = sharding._leaf_name(path)
+        if name in ("k", "xk") and s is not None and len(s) == 5 and s[2]:
+            out[name] = sharding._entry_axes(s[2])
+
+    sharding.map_specs(visit, c_spec)
+    return out
 
 
 def _shape_of(shape):
@@ -585,20 +634,16 @@ def prefill_out_spec(cfg: ModelConfig, shape, mesh, dp):
 
 
 def lower_one(cfg: ModelConfig, shape_name, mesh, *, lr: float = 1e-4,
-              kd: bool = False, kd_chunk: int = 0):
+              kd: bool = False, kd_chunk: int = 0, pos: int | None = None):
     """Returns (Lowered, meta).  ``shape_name`` names an ``INPUT_SHAPES``
     entry or is an ``InputShape``; ``mesh`` a DeviceMesh (None: one
-    device).  Raises ``NotPorted`` for what the module docstring lists."""
+    device); ``pos`` a decode's position (default the last slot of rank
+    0's slice of the sequence).  Raises ``NotPorted`` for what the module
+    docstring lists."""
     shape = _shape_of(shape_name)
-    if cfg.shard_mode == "fsdp":
-        raise NotPorted("shard_mode='fsdp' is not ported to the analysis")
     m = 1 if mesh is None else axis_size(mesh, "model")
-    if shape.kind != "decode" and _loop_steps(cfg, shape.seq_len) > \
-            MAX_LOOP_STEPS:
-        raise NotPorted(f"{_loop_steps(cfg, shape.seq_len)} per-token steps "
-                        "of the recurrent cells' Python loop are too many "
-                        "to trace")
-    if cfg.family == "encdec" and (cfg.n_heads % m or cfg.n_kv_heads % m):
+    if cfg.family == "encdec" and shape.kind != "decode" and (
+            cfg.n_heads % m or cfg.n_kv_heads % m):
         raise NotPorted("the enc-dec model's tensor-parallel forward needs "
                         "its head counts to divide the model axis")
     p_shape = specs.params_shape(cfg)
@@ -609,14 +654,30 @@ def lower_one(cfg: ModelConfig, shape_name, mesh, *, lr: float = 1e-4,
         token, _, cache = specs.decode_inputs(cfg, shape)
         c_spec = (_replicated(cache) if one else sharding.cache_specs(
             cfg, cache, mesh, shard_seq=shape.global_batch == 1))
-        _check_decode(cfg, mesh, c_spec)
         t_spec = (_replicated(token) if one
                   else sharding.batch_specs(cfg, {"t": token}, mesh)["t"])
-        step = make_serve_step(cfg, mesh=mesh)
-        pos = shape.seq_len - 1          # the last slot: the whole cache
+        kw = {}
+        if not one and cfg.shard_mode == "fsdp":
+            # the token's batch splits over axes the cache's does not:
+            # those rows are gathered (every cache leaf's dim 1 is batch)
+            c_lead = sharding._entry_axes(_spec_leaves(c_spec)[0][1])
+            kw = dict(p_spec=p_spec, tp_spec=sharding.param_specs(
+                cfg.replace(shard_mode="tp"), p_shape, mesh),
+                token_axes=tuple(a for a in _lead_axes(t_spec)
+                                 if a not in c_lead))
+        seq = None if one else _cache_seq_axes(c_spec)
+        step = make_serve_step(cfg, mesh=mesh, seq_axes=seq, **kw)
+        if pos is None:
+            # the last slot of rank 0's slice of the sequence (the whole
+            # cache where it does not split): the rank that holds pos
+            # writes the new K/V, so rank 0's program is the largest
+            n_seq = 1
+            for a in (seq or {}).get("k", ()):
+                n_seq *= axis_size(mesh, a)
+            pos = shape.seq_len // n_seq - 1
         return (Lowered(lambda p, c, t: step(p, c, t, pos),
                         (p_shape, cache, token), (p_spec, c_spec, t_spec),
-                        mesh), {"kind": "decode"})
+                        mesh), {"kind": "decode", "pos": pos})
     batch = specs.train_inputs(cfg, shape)
     b_spec = (_replicated(batch) if one
               else sharding.batch_specs(cfg, batch, mesh))
@@ -636,7 +697,7 @@ def lower_one(cfg: ModelConfig, shape_name, mesh, *, lr: float = 1e-4,
         o_spec = {"m": s_spec, "v": s_spec, "t": P()}
         step, step_cached = make_kd_train_step(
             cfg, cfg_s, lr, chunk=max(kd_chunk, 0), mesh=mesh,
-            s_spec=s_spec, batch_axes=b_axes)
+            s_spec=s_spec, batch_axes=b_axes, t_spec=p_spec)
         if kd_chunk == -1:                      # cached-teacher variant
             tl = specs.meta((shape.global_batch, shape.seq_len,
                              cfg.padded_vocab), torch_dtype(cfg.dtype))
@@ -660,7 +721,7 @@ def lower_one(cfg: ModelConfig, shape_name, mesh, *, lr: float = 1e-4,
                         (p_spec, o_spec, b_spec), mesh, opt_args=(1,)),
                 {"kind": "train"})
 
-    step = make_prefill_step(cfg, mesh=mesh)
+    step = make_prefill_step(cfg, mesh=mesh, p_spec=p_spec)
     return (Lowered(step, (p_shape, batch), (p_spec, b_spec), mesh),
             {"kind": "prefill"})
 
@@ -673,11 +734,48 @@ def _depth_cfg(cfg: ModelConfig, n_sb: int) -> ModelConfig:
     return cfg.replace(n_layers=n_sb * cfg.period, name=f"{cfg.name}@d{n_sb}")
 
 
-def _measure(cfg: ModelConfig, shape_name, mesh, **kw):
-    """(flops, bytes_accessed, collective_total, coll_detail, analysis)."""
-    low, _ = lower_one(cfg, shape_name, mesh, **kw)
-    a = low.analyze()
-    coll = hlo_analysis.collective_bytes(a["collectives"])
+def seq_lengths(cfg: ModelConfig, shape) -> tuple | None:
+    """The two sequence lengths a program is traced at and extrapolated
+    from, or None where it is traced at its own length."""
+    if (shape.kind == "decode"
+            or _loop_steps(cfg, shape.seq_len) <= MAX_LOOP_STEPS):
+        return None
+    return SEQ_EXTRAPOLATE
+
+
+def _measure(cfg: ModelConfig, shape_name, mesh, *, seq=None, **kw):
+    """(flops, bytes_accessed, collective_total, coll_detail, analysis).
+    ``seq`` (L1, L2): trace the program at those sequence lengths and
+    extrapolate FLOPs, bytes, collective bytes and counts, outputs and
+    temporaries linearly to the shape's (each grows with the sequence by
+    a fixed amount a token, a per-token loop's steps alike); the argument
+    bytes are the rank's blocks' at the shape's own length."""
+    if seq is None:
+        low, _ = lower_one(cfg, shape_name, mesh, **kw)
+        a = low.analyze()
+        coll = hlo_analysis.collective_bytes(a["collectives"])
+        return (a["flops"], a["bytes"], float(coll["total"]), coll, a)
+    shape = _shape_of(shape_name)
+    (L1, L2), L = seq, shape.seq_len
+    cut = [_measure(cfg, dataclasses.replace(shape, seq_len=n), mesh, **kw)
+           for n in (L1, L2)]
+
+    def line(x1, x2):
+        return x1 + (x2 - x1) * (L - L1) / (L2 - L1)
+
+    (f1, b1, c1, d1, a1), (f2, b2, c2, d2, a2) = cut
+    coll = {"bytes": {k: line(d1["bytes"][k], d2["bytes"][k])
+                      for k in d1["bytes"]},
+            "counts": {k: round(line(d1["counts"][k], d2["counts"][k]))
+                       for k in d1["counts"]},
+            "total": line(c1, c2)}
+    low, _ = lower_one(cfg, shape, mesh, **kw)
+    mem = {k: line(a1["memory"][k], a2["memory"][k])
+           for k in a1["memory"]}
+    mem["argument_size_in_bytes"] = sum(
+        _nbytes(x) for a in low.local_args() for x in tree_leaves(a))
+    a = {"flops": line(f1, f2), "bytes": line(b1, b2), "memory": mem,
+         "collectives": None, "seq_extrapolated": [L1, L2]}
     return (a["flops"], a["bytes"], float(coll["total"]), coll, a)
 
 
@@ -698,13 +796,14 @@ def analyze(cfg: ModelConfig, shape_name, mesh, **lower_kw) -> dict:
     chips = _chips(mesh)
     shape = _shape_of(shape_name)
     n_sb = (cfg.n_layers if cfg.family == "encdec" else cfg.n_superblocks)
+    seq = seq_lengths(cfg, shape)
 
     f_full, b_full, c_full, coll_full, a_full = _measure(
-        cfg, shape_name, mesh, **lower_kw)
+        cfg, shape_name, mesh, seq=seq, **lower_kw)
     u1 = _depth_cfg(cfg, 1).replace(scan_unroll=True)
     u2 = _depth_cfg(cfg, 2).replace(scan_unroll=True)
-    f1, b1, c1, _, _ = _measure(u1, shape_name, mesh, **lower_kw)
-    f2, b2, c2, _, _ = _measure(u2, shape_name, mesh, **lower_kw)
+    f1, b1, c1, _, _ = _measure(u1, shape_name, mesh, seq=seq, **lower_kw)
+    f2, b2, c2, _, _ = _measure(u2, shape_name, mesh, seq=seq, **lower_kw)
     extrap = lambda x1, x2, xf: max(x1 + (n_sb - 1) * (x2 - x1), x2, xf, 0.0)  # noqa: E731
     flops, bytes_acc, coll_b = (extrap(f1, f2, f_full), extrap(b1, b2, b_full),
                                 extrap(c1, c2, c_full))
@@ -724,7 +823,8 @@ def analyze(cfg: ModelConfig, shape_name, mesh, **lower_kw) -> dict:
     mem["hbm_per_chip_est"] = hbm
     mem["fits_80g"] = bool(hbm < HBM_BYTES)
     names = mesh_shape(mesh)
-    return {
+    extra = {"seq_extrapolated": list(seq)} if seq else {}
+    return {**extra,
         "arch": cfg.name, "shape": shape.name, "chips": chips,
         "mesh": "x".join(str(names[a]) for a in names),
         "kind": shape.kind, "remat": cfg.remat, "moe_shard": cfg.moe_shard,

@@ -6,18 +6,20 @@ The port compiles no HLO: a rank runs its explicit program eagerly
 takes its numbers from the program's own calls:
 
 * ``record_collectives`` wraps the port's collective functions
-  (``launch.sharding``'s ``all_reduce`` / ``all_gather`` and
-  ``models.tp``'s ``_all_reduce`` / ``_all_gather``) and records each call
-  that reaches a group of more than one rank as (function, mesh axis,
-  bytes): the tensor's bytes for an all-reduce, the gathered result's for
-  an all-gather, as JAX counts the result operand of each HLO collective.
+  (``launch.sharding``'s ``all_reduce`` / ``all_gather`` /
+  ``reduce_scatter`` and ``models.tp``'s ``_all_reduce`` /
+  ``_all_gather``) and records each call that reaches a group of more
+  than one rank as (function, mesh axis, bytes): the tensor's bytes for
+  an all-reduce, the gathered result's for an all-gather, the scattered
+  result's for a reduce-scatter, as JAX counts the result operand of
+  each HLO collective.
   ``collective_bytes`` sums a record by JAX's op names.
 * ``BytesAccessed`` counts the eager program's memory traffic: the bytes
   of every tensor input and output of every aten op it dispatches, views
-  excluded (they move nothing).  With no fusion each op reads its inputs
-  from and writes its outputs to device memory, so this is the counterpart
-  of XLA's "bytes accessed" (which counts a fused kernel's inputs and
-  outputs once).
+  and metadata queries (``prim.device``) excluded (they move nothing).
+  With no fusion each op reads its inputs from and writes its outputs to
+  device memory, so this is the counterpart of XLA's "bytes accessed"
+  (which counts a fused kernel's inputs and outputs once).
 
 ``Roofline`` keeps JAX's fields and properties with the NVIDIA H100 SXM5
 80GB's datasheet figures (NVIDIA H100 Tensor Core GPU datasheet): 989
@@ -41,7 +43,8 @@ COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 # the recorded function -> JAX's collective op name
 _OP = {"sharding.all_reduce": "all-reduce", "tp.all_reduce": "all-reduce",
-       "sharding.all_gather": "all-gather", "tp.all_gather": "all-gather"}
+       "sharding.all_gather": "all-gather", "tp.all_gather": "all-gather",
+       "sharding.reduce_scatter": "reduce-scatter"}
 
 
 def _nbytes(x) -> int:
@@ -60,19 +63,27 @@ class record_collectives(list):
         from repro_torch.launch.mesh import axis_size
         from repro_torch.models import tp
         self._orig = (sharding.all_reduce, sharding.all_gather,
-                      tp._all_reduce, tp._all_gather)
-        s_reduce, s_gather, t_reduce, t_gather = self._orig
+                      sharding.reduce_scatter, tp._all_reduce,
+                      tp._all_gather)
+        s_reduce, s_gather, s_scatter, t_reduce, t_gather = self._orig
 
-        def all_reduce(mesh, x, axis):
+        def all_reduce(mesh, x, axis, op="sum"):
             if axis_size(mesh, axis) > 1:
                 self.append(("sharding.all_reduce", axis, _nbytes(x)))
-            return s_reduce(mesh, x, axis)
+            return s_reduce(mesh, x, axis, op)
 
         def all_gather(mesh, x, axis, dim):
             n = axis_size(mesh, axis)
             if n > 1:
                 self.append(("sharding.all_gather", axis, n * _nbytes(x)))
             return s_gather(mesh, x, axis, dim)
+
+        def reduce_scatter(mesh, x, axis, dim):
+            n = axis_size(mesh, axis)
+            if n > 1:
+                self.append(("sharding.reduce_scatter", axis,
+                             _nbytes(x) // n))
+            return s_scatter(mesh, x, axis, dim)
 
         def tp_all_reduce(x, op=None):
             self.append(("tp.all_reduce", tp.tp_ctx()[1], _nbytes(x)))
@@ -83,15 +94,16 @@ class record_collectives(list):
                          tp.tp_size() * _nbytes(x)))
             return t_gather(x, dim)
 
-        (sharding.all_reduce, sharding.all_gather, tp._all_reduce,
-         tp._all_gather) = (all_reduce, all_gather, tp_all_reduce,
-                            tp_all_gather)
+        (sharding.all_reduce, sharding.all_gather, sharding.reduce_scatter,
+         tp._all_reduce, tp._all_gather) = (all_reduce, all_gather,
+                                            reduce_scatter, tp_all_reduce,
+                                            tp_all_gather)
 
     def restore(self):
         from repro_torch.launch import sharding
         from repro_torch.models import tp
-        (sharding.all_reduce, sharding.all_gather, tp._all_reduce,
-         tp._all_gather) = self._orig
+        (sharding.all_reduce, sharding.all_gather, sharding.reduce_scatter,
+         tp._all_reduce, tp._all_gather) = self._orig
 
     def __enter__(self):
         return self
@@ -113,8 +125,8 @@ def collective_bytes(calls) -> dict:
 
 class BytesAccessed(TorchDispatchMode):
     """While entered, ``total`` sums the bytes of the tensor inputs and
-    outputs of every aten op dispatched, ops that return views excluded
-    (the module docstring)."""
+    outputs of every aten op dispatched, ops that return views and
+    metadata queries excluded (the module docstring)."""
 
     def __init__(self):
         super().__init__()
@@ -122,7 +134,7 @@ class BytesAccessed(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if not func.is_view:
+        if not func.is_view and func.namespace != "prim":
             self.total += (_tensor_bytes(args)
                            + _tensor_bytes((kwargs or {}).values())
                            + _tensor_bytes((out,)))

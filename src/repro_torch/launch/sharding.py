@@ -334,11 +334,13 @@ def local_block(mesh, x, spec: dict):
     return x
 
 
-def all_reduce(mesh, x, axis: str):
-    """Sum ``x`` over ``axis``'s sub-group, in place; returns ``x``."""
+def all_reduce(mesh, x, axis: str, op: str = "sum"):
+    """Sum (``op="max"``: the elementwise max of) ``x`` over ``axis``'s
+    sub-group, in place; returns ``x``."""
     if axis_size(mesh, axis) > 1:
         import torch.distributed as dist
-        dist.all_reduce(x, group=mesh.get_group(axis))
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=mesh.get_group(axis))
     return x
 
 
@@ -354,6 +356,21 @@ def all_gather(mesh, x, axis: str, dim: int):
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=mesh.get_group(axis))
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(mesh, x, axis: str, dim: int):
+    """Every ``axis`` rank's ``x`` summed, and this rank's contiguous
+    slice of ``dim`` of the sum (the dual of ``all_gather``)."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x
+    import torch
+    import torch.distributed as dist
+    x = x.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, x, group=mesh.get_group(axis))
+    return out.movedim(0, dim)
 
 
 def gather_block(mesh, x, spec: dict):

@@ -31,9 +31,14 @@ or a ``wk`` split that cuts through a head), the cut tensor is gathered
 over the model axis: K/V whole before the local query heads pick theirs,
 or, when the query heads do not split, the attention whole on every rank.
 ``attn_decode`` has the one body too: this rank's query heads against a
-whole or head-dim-split cache, the whole step with no context.
+whole cache, or every head against its block of a cache split along the
+head dim or, under ``seq_shard_ctx``, along the sequence (the partial
+softmax combined over the ranks); the whole step with no context.
+``cross_attn_decode`` reads the enc-dec model's cached encoder K/V alike.
 """
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -247,6 +252,95 @@ def cross_attn_forward(p, cfg: ModelConfig, x, k, v):
     return tp.reduce_from_tp(y) if split else y
 
 
+# ------------------------------------------------ the sequence-split cache
+_SEQ: "tuple | None" = None     # (mesh, {cache leaf name: axes}) or None
+
+
+@contextmanager
+def seq_shard_ctx(mesh, axes: dict):
+    """Within this block a decode cache's sequence dim is split over mesh
+    axes: ``axes`` maps a cache leaf name ("k" for self-attention, "xk"
+    for enc-dec cross-attention) to the axes (major first) its dim 2
+    splits along (``launch.sharding.cache_specs``' "seq" layout and its
+    batch-1 layout)."""
+    global _SEQ
+    prev = _SEQ
+    _SEQ = (mesh, {k: tuple(v) for k, v in axes.items()})
+    try:
+        yield
+    finally:
+        _SEQ = prev
+
+
+def _seq_axes(name: str) -> tuple:
+    """The axes of more than one rank the ``name`` cache's sequence splits
+    along (none without a context)."""
+    if _SEQ is None:
+        return ()
+    from repro_torch.launch.mesh import axis_size
+    mesh, axes = _SEQ
+    return tuple(a for a in axes.get(name, ()) if axis_size(mesh, a) > 1)
+
+
+def _seq_offset(axes: tuple, n_local: int) -> int:
+    """The first absolute position of this rank's slice of a sequence
+    split along ``axes`` (``launch.sharding.local_block``'s order)."""
+    from repro_torch.launch.mesh import axis_size
+    mesh = _SEQ[0]
+    idx = 0
+    for a in axes:
+        idx = idx * axis_size(mesh, a) + int(mesh.get_local_rank(a))
+    return idx * n_local
+
+
+def _seq_reduce(x, axes: tuple, op: str = "sum"):
+    """``x``, a temporary, summed (or maxed) over ``axes`` in place."""
+    from repro_torch.launch import sharding
+    x = x.contiguous()
+    for a in axes:
+        x = sharding.all_reduce(_SEQ[0], x, a, op)
+    return x
+
+
+def _attend_cache(cfg: ModelConfig, q, kc, vc, mask, seq: tuple):
+    """One query position of every head, q (B, 1, H, dh), against a
+    cache block kc, vc (B, T, KV, dh): the rank's slice of the head dim
+    when dh < hd (the partial scores summed over the model axis), of the
+    positions when ``seq`` names the axes they split along (the partial
+    softmax's max, sum and weighted values reduced over them).  mask (T,)
+    bool by absolute position.  Returns (B, 1, H, dh)."""
+    B, _, H, dh = q.shape
+    KV = kc.shape[2]
+    s = torch.einsum("bskgd,btkd->bkgst", q.reshape(B, 1, KV, H // KV, dh),
+                     kc).to(torch.float32)
+    if dh != cfg.head_dim:
+        s = tp.reduce_from_tp(s)
+    s = softcap(s * cfg.head_dim ** -0.5, cfg.attn_softcap)
+    s = torch.where(mask[None, None, None, None], s, NEG_INF)
+    if not seq:
+        probs = torch.softmax(s, dim=-1).to(vc.dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, vc)
+    else:
+        mx = _seq_reduce(s.amax(dim=-1), seq, "max")
+        e = torch.exp(s - mx[..., None])
+        den = _seq_reduce(e.sum(dim=-1), seq)
+        num = _seq_reduce(torch.einsum("bkgst,btkd->bskgd", e.to(vc.dtype),
+                                       vc).to(torch.float32), seq)
+        out = (num / den.permute(0, 3, 1, 2)[..., None]).to(vc.dtype)
+    return out.reshape(B, 1, H, dh)
+
+
+def _heads_out(p, cfg: ModelConfig, out):
+    """``wo`` of every head's output (B, S, H, hd) whole on this rank: its
+    slice into a row-split ``wo`` (whole heads or not), summed over the
+    model axis."""
+    B, S = out.shape[:2]
+    flat = out.reshape(B, S, cfg.q_dim)
+    if tp.splits(cfg.q_dim):
+        return tp.reduce_from_tp(tp.scatter_to_tp(flat) @ p["wo"])
+    return flat @ p["wo"]
+
+
 def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                     device=None):
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -256,61 +350,81 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def attn_decode(p, cfg: ModelConfig, cache, x, pos, *, local: bool = False):
     """x: (B,1,d); pos: the current position (an int).  Returns
-    (out, cache), the cache a new dict of new tensors.
+    (out, cache), the cache a new dict (its tensors new where written).
 
-    Under a tensor-parallel context, one decode step of this rank's query
-    heads (``wq`` / ``wo`` split as in ``attn_forward``; the query heads
-    must divide the model axis when ``wq`` splits) against a cache that
-    holds every K/V head, either whole or split along the head dim
-    (``launch.sharding.cache_specs``' "batch" and "hd" layouts; the
-    cache's last dim says which).  The new token's K/V are gathered whole
-    before they are written.  With the head dim split, every rank scores
-    all heads on its slice of it: the partial scores are summed over the
-    ranks, and the slices of the output gathered.  With no context
-    nothing splits, every tp operation is an identity, and this is the
-    whole decode step."""
+    Under a tensor-parallel context the cache is this rank's block of
+    ``launch.sharding.cache_specs``' layouts: every K/V head whole
+    ("batch"), split along the head dim ("hd"; the cache's last dim says
+    which), or split along the sequence (``seq_shard_ctx``: "seq", and a
+    batch of 1 on the data axes).  The new token's K/V are gathered whole
+    and written by the rank that holds ``pos``.  Where the query heads
+    split evenly over a whole-head, whole-sequence cache the rank runs its
+    own heads (``wq`` / ``wo`` split as in ``attn_forward``); otherwise it
+    gathers q whole, attends with every head over its block
+    (``_attend_cache``) and takes its slice of the output into ``wo``'s
+    rows.  With no context nothing splits, every tp operation is an
+    identity, and this is the whole decode step."""
     B = x.shape[0]
     pos = int(pos)
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     m, r = tp.tp_size(), tp.tp_rank()
     q_split, kv_split = tp.splits(cfg.q_dim), tp.splits(cfg.kv_dim)
-    if q_split and H % m:
-        raise ValueError(f"decode: {H} query heads do not split {m} ways")
-    Hl = H // m if q_split else H
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     xd = tp.copy_to_tp(x)
-    q = ((xd if q_split else x) @ p["wq"]).reshape(B, 1, Hl, hd)
+    q = (xd if q_split else x) @ p["wq"]
     k, v = (tp.gather_from_tp(t) if kv_split else t
             for t in ((xd if kv_split else x) @ p[w] for w in ("wk", "wv")))
-    q, k = _norm_rope(cfg, q, k.reshape(B, 1, KV, hd), positions,
-                      p.get("q_norm"), p.get("k_norm"))
-    v = v.reshape(B, 1, KV, hd)
     dh = cache["k"].shape[-1]
-    split_hd = dh != hd
-    if split_hd:
-        k, v = k[..., r * dh:(r + 1) * dh], v[..., r * dh:(r + 1) * dh]
-    at = torch.tensor([pos], device=x.device)
-    kc = cache["k"].index_copy(1, at, k.to(cache["k"].dtype))
-    vc = cache["v"].index_copy(1, at, v.to(cache["v"].dtype))
-    j = torch.arange(kc.shape[1], device=x.device)
+    seq = _seq_axes("k")
+    heads = q_split and H % m == 0 and dh == hd and not seq
+    Hq = H // m if heads else H
+    if not heads and q_split:
+        q = tp.gather_from_tp(q)
+    q, k = _norm_rope(cfg, q.reshape(B, 1, Hq, hd), k.reshape(B, 1, KV, hd),
+                      positions, p.get("q_norm"), p.get("k_norm"))
+    v = v.reshape(B, 1, KV, hd)
+    if dh != hd:
+        q, k, v = (t[..., r * dh:(r + 1) * dh] for t in (q, k, v))
+    T = cache["k"].shape[1]
+    off = _seq_offset(seq, T) if seq else 0
+    kc, vc = cache["k"], cache["v"]
+    if off <= pos < off + T:              # this rank's slice holds pos
+        at = torch.tensor([pos - off], device=x.device)
+        kc = kc.index_copy(1, at, k.to(kc.dtype))
+        vc = vc.index_copy(1, at, v.to(vc.dtype))
+    j = off + torch.arange(T, device=x.device)
     mask = j <= pos
     if local and cfg.sliding_window > 0:
         mask = mask & ((pos - j) < cfg.sliding_window)
-    if not split_hd:
-        sel = _local_kv_heads(cfg, Hl, r) if q_split else slice(None)
+    if heads:
+        sel = _local_kv_heads(cfg, Hq, r)
         out = _sdpa(cfg, q, kc[:, :, sel], vc[:, :, sel],
                     mask[None, None, None])
-    else:
-        qa = tp.gather_from_tp(q, 2) if q_split else q      # (B,1,H,hd)
-        qs = qa[..., r * dh:(r + 1) * dh].reshape(B, 1, KV, H // KV, dh)
-        scores = tp.reduce_from_tp(torch.einsum(
-            "bskgd,btkd->bkgst", qs, kc).to(torch.float32)) * hd ** -0.5
-        scores = softcap(scores, cfg.attn_softcap)
-        scores = torch.where(mask[None, None, None, None], scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(vc.dtype)
-        out = tp.gather_from_tp(torch.einsum(
-            "bkgst,btkd->bskgd", probs, vc).reshape(B, 1, H, dh), -1)
-        if q_split:
-            out = out[:, :, r * Hl:(r + 1) * Hl]
-    y = out.reshape(B, 1, Hl * hd) @ p["wo"]
-    return (tp.reduce_from_tp(y) if q_split else y), {"k": kc, "v": vc}
+        y = tp.reduce_from_tp(out.reshape(B, 1, Hq * hd) @ p["wo"])
+        return y, {"k": kc, "v": vc}
+    out = _attend_cache(cfg, q, kc, vc, mask, seq)
+    if dh != hd:
+        out = tp.gather_from_tp(out, -1)
+    return _heads_out(p, cfg, out), {"k": kc, "v": vc}
+
+
+def cross_attn_decode(p, cfg: ModelConfig, x, xk, xv):
+    """One decoder position's cross-attention, x (B,1,d), over the cached
+    encoder K/V xk, xv (B,T,KV,·) in the cache's layout (whole, split
+    along the head dim, or along the source positions:
+    ``seq_shard_ctx``'s "xk"), as ``attn_decode`` attends.  With no
+    context nothing splits: ``cross_attn_forward`` at one position."""
+    B = x.shape[0]
+    hd, dh, r = cfg.head_dim, xk.shape[-1], tp.tp_rank()
+    q_split = tp.splits(cfg.q_dim)
+    q = (tp.copy_to_tp(x) if q_split else x) @ p["wq"]
+    if q_split:
+        q = tp.gather_from_tp(q)
+    q = q.reshape(B, 1, cfg.n_heads, hd)
+    if dh != hd:
+        q = q[..., r * dh:(r + 1) * dh]
+    mask = torch.ones((xk.shape[1],), dtype=torch.bool, device=x.device)
+    out = _attend_cache(cfg, q, xk, xv, mask, _seq_axes("xk"))
+    if dh != hd:
+        out = tp.gather_from_tp(out, -1)
+    return _heads_out(p, cfg, out)

@@ -15,17 +15,18 @@ runs this rank's slices as the decoder-only model does: attention heads,
 the MLP's hidden width and the vocabulary (embedding lookup and logits)
 split; cross-attention's query heads read the K/V heads of the same
 slice.  It needs the query and K/V head counts to divide the model axis.
-The decode step has no such split.
+The decode step splits as the decoder-only model's does: self-attention
+through ``attention.attn_decode``, cross-attention over the cached
+encoder K/V in the cache's layout (``attention.cross_attn_decode``), the
+FFN Megatron-split and the vocabulary split.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as attn
-from repro_torch.models import tp
+from repro_torch.models import fsdp, tp
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        init_mlp, init_norm, softcap,
                                        torch_dtype)
@@ -67,8 +68,10 @@ def init_params(cfg: ModelConfig, generator):
     }
 
 
-def _layer(blocks, i):
-    return tree_map(lambda x: x[i], blocks)
+def _layer(params, name: str, i: int):
+    """Layer ``i`` of the stacked ``name`` blocks (gathered whole under
+    an FSDP context, ``models.fsdp``)."""
+    return fsdp.layer(params[name], i, (name,))
 
 
 def _positions(B, S, device):
@@ -80,12 +83,13 @@ def encode(cfg: ModelConfig, params, embeds):
     positions = _positions(B, S, embeds.device)
     h = embeds.to(torch_dtype(cfg.dtype))
     for i in range(cfg.n_enc_layers):
-        p = _layer(params["enc_blocks"], i)
+        p = _layer(params, "enc_blocks", i)
         x = apply_norm(cfg, p["norm1"], h)
         h = h + attn.attn_forward(p["attn"], cfg, x, positions, causal=False)
         x = apply_norm(cfg, p["norm2"], h)
         h = h + apply_mlp(p["ffn"], x, cfg.d_ff)
-    return apply_norm(cfg, params["enc_norm"], h)
+    return apply_norm(cfg, fsdp.gather(params["enc_norm"], ("enc_norm",)),
+                      h)
 
 
 def _dec_body(cfg: ModelConfig, h, p, positions, kv):
@@ -99,10 +103,11 @@ def _dec_body(cfg: ModelConfig, h, p, positions, kv):
 
 
 def _logits(cfg: ModelConfig, params, h):
-    h = apply_norm(cfg, params["dec_norm"], h)
+    h = apply_norm(cfg, fsdp.gather(params["dec_norm"], ("dec_norm",)), h)
     if vocab_split(cfg):
         h = tp.copy_to_tp(h)
-    logits = (h @ params["embed"].T.to(h.dtype)) * cfg.logit_scale
+    embed = fsdp.gather(params["embed"], ("embed",))
+    logits = (h @ embed.T.to(h.dtype)) * cfg.logit_scale
     return softcap(logits, cfg.final_softcap)
 
 
@@ -115,7 +120,7 @@ def forward(cfg: ModelConfig, params, tokens, *, embeds, positions=None):
         positions = _positions(B, S, tokens.device)
     h = embed_tokens(cfg, params, tokens)
     for i in range(cfg.n_layers):
-        p = _layer(params["dec_blocks"], i)
+        p = _layer(params, "dec_blocks", i)
         h = _dec_body(cfg, h, p, positions,
                       attn.cross_kv(p["cross"], cfg, enc_out))
     return (_logits(cfg, params, h),
@@ -135,7 +140,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int,
 def build_cross_cache(cfg: ModelConfig, params, cache, embeds):
     """Run the encoder once and fill the static cross K/V (prefill side)."""
     enc_out = encode(cfg, params, embeds)
-    kvs = [attn.cross_kv(_layer(params["dec_blocks"], i)["cross"], cfg,
+    kvs = [attn.cross_kv(_layer(params, "dec_blocks", i)["cross"], cfg,
                          enc_out) for i in range(cfg.n_layers)]
     xk = torch.stack([k for k, _ in kvs]).to(cache["xk"].dtype)
     xv = torch.stack([v for _, v in kvs]).to(cache["xv"].dtype)
@@ -145,20 +150,20 @@ def build_cross_cache(cfg: ModelConfig, params, cache, embeds):
 def decode_step(cfg: ModelConfig, params, cache, token, pos):
     """token: (B,1) int; pos: the current position.  Returns (logits,
     cache), the cache a new dict (the cross K/V carried as they are)."""
-    h = F.embedding(token, params["embed"]) * cfg.embed_scale
+    h = embed_tokens(cfg, params, token)
     nk, nv = [], []
     for i in range(cfg.n_layers):
-        p = _layer(params["dec_blocks"], i)
+        p = _layer(params, "dec_blocks", i)
         x = apply_norm(cfg, p["norm1"], h)
         r, newc = attn.attn_decode(p["self_attn"], cfg,
                                    {"k": cache["k"][i], "v": cache["v"][i]},
                                    x, pos)
         h = h + r
         x = apply_norm(cfg, p["norm_x"], h)
-        h = h + attn.cross_attn_forward(p["cross"], cfg, x, cache["xk"][i],
-                                        cache["xv"][i])
+        h = h + attn.cross_attn_decode(p["cross"], cfg, x, cache["xk"][i],
+                                       cache["xv"][i])
         x = apply_norm(cfg, p["norm2"], h)
-        h = h + apply_mlp(p["ffn"], x)
+        h = h + apply_mlp(p["ffn"], x, cfg.d_ff)
         nk.append(newc["k"])
         nv.append(newc["v"])
     return _logits(cfg, params, h), dict(cache, k=torch.stack(nk),

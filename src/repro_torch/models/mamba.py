@@ -19,7 +19,8 @@ gathered conv leaves, so the ``x_proj`` product sees the whole ``xc`` and
 its (dt, B, C) output, gathered where ``x_proj`` splits, is whole on every
 rank (B and C feed every channel).  ``dt_proj``, ``dt_bias``, ``A_log``,
 ``D`` and the gate take the rank's channels, and the row-parallel
-``out_proj`` ends in one ``reduce_from_tp``.
+``out_proj`` ends in one ``reduce_from_tp``.  ``mamba_decode`` splits
+alike over a cache that holds the rank's channels.
 """
 from __future__ import annotations
 
@@ -134,17 +135,31 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype, device=None):
 
 
 def mamba_decode(p, cfg: ModelConfig, cache, x, pos):
-    """x: (B,1,d).  Returns (y, cache)."""
+    """x: (B,1,d).  Returns (y, cache).  Under a tensor-parallel split of
+    ``d_inner`` the cache holds this rank's channels (``h`` and ``conv``
+    split along d_inner, ``launch.sharding.cache_specs``): the gathered
+    ``in_proj`` output gives the rank its channels of both halves, the
+    conv runs on them from its buffer, ``xc`` is gathered for ``x_proj``
+    ((dt, B, C) feed every channel), and the row-parallel ``out_proj``
+    ends in one ``reduce_from_tp``."""
     del pos
-    xm, z = torch.chunk(x[:, 0] @ p["in_proj"], 2, dim=-1)       # (B,di)
+    di = cfg.d_inner
+    part = p["out_proj"].shape[-2] != di
+    xm, z = torch.chunk(tp.linear_whole(x[:, 0], p["in_proj"], 2 * di),
+                        2, dim=-1)                               # (B,di)
+    if part:
+        xm, z = tp.own(xm), tp.own(z)
     w = p["conv_w"]
     K = w.shape[0]
     buf = cache["conv"]                                          # (B,K-1,di)
     conv = sum(buf[:, i] * w[i] for i in range(K - 1)) + xm * w[K - 1]
     xc = F.silu(conv + p["conv_b"])
     new_buf = torch.cat([buf[:, 1:], xm[:, None].to(buf.dtype)], dim=1)
-    dt, Bm, Cm = _ssm_inputs(p, cfg, xc[:, None])
-    dt, Bm, Cm = dt[:, 0], Bm[:, 0], Cm[:, 0]
+    proj = tp.linear_whole(tp.whole(xc, di), p["x_proj"],
+                           cfg.dt_rank + 2 * cfg.ssm_state)
+    dt, Bm, Cm = torch.split(proj, [cfg.dt_rank, cfg.ssm_state,
+                                    cfg.ssm_state], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
     A = -torch.exp(p["A_log"].to(torch.float32))
     dtf = dt.to(torch.float32)
     a = torch.exp(dtf[..., None] * A)                            # (B,di,st)
@@ -153,5 +168,6 @@ def mamba_decode(p, cfg: ModelConfig, cache, x, pos):
     h = a * cache["h"] + b
     y = torch.einsum("bds,bs->bd", h, Cm.to(torch.float32)).to(x.dtype)
     y = y + xc * p["D"]
-    y = y * F.silu(z)
-    return (y @ p["out_proj"])[:, None], {"h": h, "conv": new_buf}
+    y = (y * F.silu(z)) @ p["out_proj"]
+    return (tp.reduce_from_tp(y) if part else y)[:, None], {
+        "h": h, "conv": new_buf}

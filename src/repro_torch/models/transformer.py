@@ -17,13 +17,15 @@ serves plain autograd (``launch/train.py``) and the FL engine's vmapped
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba, tp, xlstm_blocks as xb
+from repro_torch.models import fsdp, mamba, tp, xlstm_blocks as xb
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_init,
                                        init_mlp, init_norm, softcap,
                                        torch_dtype)
@@ -117,20 +119,22 @@ def vocab_split(cfg: ModelConfig) -> bool:
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
+    embed = fsdp.gather(params["embed"], ("embed",))
     if not vocab_split(cfg):
-        return F.embedding(tokens, params["embed"]) * cfg.embed_scale
+        return F.embedding(tokens, embed) * cfg.embed_scale
     # vocab-parallel lookup: this rank's rows, zero elsewhere, summed
-    v = params["embed"].shape[0]
+    v = embed.shape[0]
     t = tokens - tp.tp_rank() * v
     inside = (t >= 0) & (t < v)
-    e = F.embedding(t.clamp(0, v - 1), params["embed"]) * inside[..., None]
+    e = F.embedding(t.clamp(0, v - 1), embed) * inside[..., None]
     return tp.reduce_from_tp(e) * cfg.embed_scale
 
 
 def _logits(cfg: ModelConfig, params, h):
     """Logits (..., V_pad), or this rank's vocabulary slice of them under
     a tensor-parallel context (``vocab_split``)."""
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head = fsdp.gather(params[name], (name,))
     if vocab_split(cfg):
         h = tp.copy_to_tp(h)
     logits = (h @ head.T.to(h.dtype)) * cfg.logit_scale
@@ -159,7 +163,12 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
     if positions is None:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
 
-    def sb_body(h, sbp, positions):
+    sharded = fsdp.current()
+
+    def sb_body(sb, h, sbp, positions):
+        # the superblock's leaves gathered here, inside a remat's
+        # recomputation too (``models.fsdp``)
+        sbp = fsdp.gather_slice(sbp, sb, ("blocks",), sharded)
         aux_sb = torch.zeros((), dtype=torch.float32, device=h.device)
         for j in range(cfg.period):
             h, a = _apply_block(cfg, j, sbp[f"p{j}"], h, positions)
@@ -168,14 +177,15 @@ def forward(cfg: ModelConfig, params, tokens=None, *, embeds=None,
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for sb in range(cfg.n_superblocks):
-        sbp = {k: tree_map(lambda x: x[sb], v)
-               for k, v in params["blocks"].items()}
+        sbp = fsdp.stack_slice(params["blocks"], sb, ("blocks",))
+        body = functools.partial(sb_body, sb)
         if cfg.remat:
-            h, aux_sb = _remat(sb_body, h, sbp, positions)
+            h, aux_sb = _remat(body, h, sbp, positions)
         else:
-            h, aux_sb = sb_body(h, sbp, positions)
+            h, aux_sb = body(h, sbp, positions)
         aux = aux + aux_sb
-    h = apply_norm(cfg, params["final_norm"], h)
+    h = apply_norm(cfg, fsdp.gather(params["final_norm"], ("final_norm",)),
+                   h)
     if return_hidden:
         return h, aux
     return _logits(cfg, params, h), aux
@@ -276,11 +286,12 @@ def decode_step(cfg: ModelConfig, params, cache, token, pos):
     new = {f"p{j}": [] for j in range(cfg.period)}
     for sb in range(cfg.n_superblocks):
         for j in range(cfg.period):
-            p = tree_map(lambda x: x[sb], params["blocks"][f"p{j}"])
+            p = fsdp.layer(params["blocks"][f"p{j}"], sb, ("blocks", f"p{j}"))
             c = tree_map(lambda x: x[sb], cache[f"p{j}"])
             h, c = _decode_block(cfg, j, p, c, h, pos)
             new[f"p{j}"].append(c)
-    h = apply_norm(cfg, params["final_norm"], h)
+    h = apply_norm(cfg, fsdp.gather(params["final_norm"], ("final_norm",)),
+                   h)
     return _logits(cfg, params, h), {k: stack(v) for k, v in new.items()}
 
 

@@ -21,7 +21,9 @@ sLSTM's ``wx`` columns are head-major (all four gates of a head
 together), so a rank's columns are whole heads: its cell runs on them with
 its heads' slices of ``r`` and ``b``, its output is gathered, and the
 GeGLU is a Megatron MLP.  Where the heads do not split evenly the cut
-tensors are gathered and the cell runs whole on every rank.
+tensors are gathered and the cell runs whole on every rank.  The decode
+steps split over the cache's layout instead (``mlstm_decode``,
+``slstm_decode``): the state along its head dim, the inputs gathered.
 """
 from __future__ import annotations
 
@@ -123,9 +125,10 @@ def _mlstm_seq(cfg: ModelConfig, q, k, v, it, ft, B, S, H, hd):
     carry = _zero_carry(B, H, hd, q.device)
     q, k, v = q.to(_F32), k.to(_F32), v.to(_F32)
     hs = []
-    for t in range(S):
-        carry, h = _mlstm_cell(carry, (q[:, t], k[:, t], v[:, t], it[:, t],
-                                       ft[:, t]))
+    # the steps by ``unbind``, whose backward stacks the steps' gradients
+    # once (a slice's would write a whole-sequence gradient a step)
+    for step in zip(*(t.unbind(1) for t in (q, k, v, it, ft))):
+        carry, h = _mlstm_cell(carry, step)
         hs.append(h)
     return torch.stack(hs, dim=1)                             # (B,S,H,hd)
 
@@ -211,30 +214,67 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, dtype, device=None):
 
 
 def mlstm_decode(p, cfg: ModelConfig, cache, x, pos):
+    """One step.  Under a tensor-parallel context the cache is this
+    rank's block (``launch.sharding.cache_specs``): ``C`` (B,H,hd_v,hd_k)
+    split along hd_v, ``n`` along hd_k, ``conv`` along d_inner, ``m``
+    whole.  The rank runs the conv on its channels and gathers ``xc``;
+    q, k, v and the gates are whole (gathered where their leaves split);
+    its rows of ``C`` give its hd_v slice of h from the whole q, while
+    ``n·q`` is a partial sum over hd_k, summed over the model axis.  h is
+    gathered, and the rank's channels of it, of the skip and of the gate
+    enter the row-parallel ``down``."""
     del pos
     B, _, d = x.shape
     di = cfg.mlstm_expand * d
     H = cfg.n_heads
     hd = di // H
-    xm, z = torch.chunk(x[:, 0] @ p["up"], 2, dim=-1)
+    r = tp.tp_rank()
+    xm, z = torch.chunk(tp.linear_whole(x[:, 0], p["up"], 2 * di), 2,
+                        dim=-1)
+    buf = cache["conv"]
+    xm_c = tp.own(xm) if buf.shape[-1] != di else xm
     w = p["conv_w"]
     K = w.shape[0]
-    buf = cache["conv"]
-    conv = sum(buf[:, i] * w[i] for i in range(K - 1)) + xm * w[K - 1]
-    xc = F.silu(conv + p["conv_b"])
-    new_buf = torch.cat([buf[:, 1:], xm[:, None].to(buf.dtype)], dim=1)
-    q = (xc @ p["wq"]).reshape(B, H, hd).to(_F32)
-    k = ((xc @ p["wk"]) * (hd ** -0.5)).reshape(B, H, hd).to(_F32)
-    v = (xm @ p["wv"]).reshape(B, H, hd).to(_F32)
-    gate = (xm @ p["w_if"]).to(_F32) + p["b_if"].to(_F32)
+    conv = sum(buf[:, i] * w[i] for i in range(K - 1)) + xm_c * w[K - 1]
+    xc_c = F.silu(conv + p["conv_b"])
+    new_buf = torch.cat([buf[:, 1:], xm_c[:, None].to(buf.dtype)], dim=1)
+    xc = tp.whole(xc_c, di)
+    q = tp.linear_whole(xc, p["wq"], di).reshape(B, H, hd).to(_F32)
+    k = (tp.linear_whole(xc, p["wk"], di) * (hd ** -0.5)).reshape(
+        B, H, hd).to(_F32)
+    v = tp.linear_whole(xm, p["wv"], di).reshape(B, H, hd).to(_F32)
+    gate = (tp.linear_whole(xm, p["w_if"], 2 * H).to(_F32)
+            + tp.whole(p["b_if"], 2 * H).to(_F32))
     it, ft = gate[..., :H], gate[..., H:]
-    (C, n, m), h = _mlstm_cell((cache["C"], cache["n"], cache["m"]),
-                               (q, k, v, it, ft))
+    # ``_mlstm_cell`` on the cache's rows of C and slice of n
+    C, n, m = cache["C"], cache["n"], cache["m"]
+    hv, hk = C.shape[-2], n.shape[-1]
+    logf = F.logsigmoid(ft)
+    m_new = torch.maximum(logf + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(logf + m - m_new)
+    v_r = v[..., r * hv:(r + 1) * hv] if hv != hd else v
+    k_r, q_r = ((t[..., r * hk:(r + 1) * hk] if hk != hd else t)
+                for t in (k, q))
+    C = (f_p[..., None, None] * C
+         + i_p[..., None, None] * (v_r[..., :, None] * k[..., None, :]))
+    n = f_p[..., None] * n + i_p[..., None] * k_r
+    nq = torch.sum(n * q_r, dim=-1)
+    if hk != hd:
+        nq = tp.reduce_from_tp(nq)
+    denom = torch.maximum(torch.abs(nq), torch.exp(-m_new)) + 1e-6
+    h = torch.einsum("bhvk,bhk->bhv", C, q) / denom[..., None]
+    if hv != hd:
+        h = tp.gather_from_tp(h, -1)
     h = h.reshape(B, di).to(x.dtype)
+    part = p["down"].shape[-2] != di
+    if part:
+        h, z = tp.own(h), tp.own(z)
+        xc = xc_c if xc_c.shape[-1] != di else tp.own(xc)
     h = h + p["skip"] * xc
-    h = h * F.silu(z)
-    return (h @ p["down"])[:, None], {"C": C, "n": n, "m": m,
-                                      "conv": new_buf}
+    h = (h * F.silu(z)) @ p["down"]
+    return (tp.reduce_from_tp(h) if part else h)[:, None], {
+        "C": C, "n": n, "m": m_new, "conv": new_buf}
 
 
 # ------------------------------------------------------------------ sLSTM
@@ -267,7 +307,12 @@ def _slstm_cell(r, carry, xg):
     H, hd = r.shape[:2]
     rec = torch.einsum("bhd,hdk->bhk", h, r.to(_F32))        # (B,H,4hd)
     g = xg.reshape(B, H, 4 * hd).to(_F32) + rec
-    zt, it, ft, ot = torch.chunk(g, 4, dim=-1)                # (B,H,hd)
+    return _slstm_update(torch.chunk(g, 4, dim=-1), c, n, m)  # (B,H,hd)
+
+
+def _slstm_update(gates, c, n, m):
+    """The sLSTM state update from the z, i, f, o pre-activations."""
+    zt, it, ft, ot = gates
     z = torch.tanh(zt)
     o = torch.sigmoid(ot)
     logf = F.logsigmoid(ft)
@@ -300,8 +345,8 @@ def slstm_forward(p, cfg: ModelConfig, x):
     H, hd = r.shape[:2]
     carry = _slstm_carry(B, H, hd, x.device)
     hs = []
-    for t in range(S):
-        carry = _slstm_cell(r, carry, xg[:, t])
+    for xg_t in xg.unbind(1):
+        carry = _slstm_cell(r, carry, xg_t)
         hs.append(carry[2])
     h = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
     if heads:
@@ -323,11 +368,36 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, dtype, device=None):
 
 
 def slstm_decode(p, cfg: ModelConfig, cache, x, pos):
+    """One step.  Under a tensor-parallel context the cache is this
+    rank's block (``launch.sharding.cache_specs``): c, n and m (B,H,hd)
+    hold its slice of the head dim of every head, and h, which the rule
+    for Mamba's ``h`` takes, its block of the heads.  ``wx``'s column
+    blocks match neither split, so its output is gathered whole and
+    regrouped to the rank's slice of each gate of each head; the
+    recurrent product takes the whole h against the matching columns of
+    the (replicated) ``r``.  The new h is gathered, and kept in the
+    cache's layout; the GeGLU projection is a Megatron MLP under a split
+    of its width."""
     del pos
     B, _, d = x.shape
-    xg = x[:, 0] @ p["wx"] + p["b"]
-    carry = (cache["c"], cache["n"], cache["h"], cache["m"])
-    c, n, h, m = _slstm_cell(p["r"], carry, xg)
-    hh = h.reshape(B, d).to(x.dtype)
+    H = cfg.n_heads
+    hd = d // H
+    xg = tp.linear_whole(x[:, 0], p["wx"], 4 * d) + tp.whole(p["b"], 4 * d)
+    c, n, h, m = cache["c"], cache["n"], cache["h"], cache["m"]
+    hs = c.shape[-1]
+    h_heads = h.shape[1] != H
+    h = tp.whole(h, H, 1) if h_heads else tp.whole(h, hd)
+    sl = slice(tp.tp_rank() * hs, (tp.tp_rank() + 1) * hs)
+    r = p["r"].reshape(H, hd, 4, hd)[..., sl].to(_F32)
+    g = (xg.reshape(B, H, 4, hd)[..., sl].to(_F32)
+         + torch.einsum("bhd,hdgk->bhgk", h, r))
+    c, n, h, m = _slstm_update(g.unbind(2), c, n, m)
+    hh = tp.whole(h, hd)
+    h = tp.own(hh, 1) if h_heads else h
+    hh = hh.reshape(B, d).to(x.dtype)
+    split = p["down"].shape[-2] != _slstm_pf(cfg)
+    if split:
+        hh = tp.copy_to_tp(hh)
     y = (_gelu(hh @ p["up_g"]) * (hh @ p["up_v"])) @ p["down"]
-    return y[:, None], {"c": c, "n": n, "h": h, "m": m}
+    return (tp.reduce_from_tp(y) if split else y)[:, None], {
+        "c": c, "n": n, "h": h, "m": m}

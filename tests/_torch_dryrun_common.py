@@ -1,4 +1,5 @@
-"""Rank-side halves of ``tests/test_torch_dryrun.py``: the compile
+"""Rank-side halves of ``tests/test_torch_dryrun.py`` (and the xLSTM
+traces of ``test_torch_dryrun_xlstm.py``): the compile
 analysis's programs at smoke size, analysed in a fake world and run for
 real on a world of gloo ranks.  Like ``_torch_mesh_common``, whose spawn
 it uses, this module imports neither JAX nor the JAX package.
@@ -88,3 +89,19 @@ def _decode_error(mesh, low, got, want):
     return max(float((g - sharding.local_block(
         mesh, w, sharding.spec_dims(s))).abs().max())
         for g, w, s in blocks)
+
+
+def xlstm_measure(kind, lengths, extrapolate):
+    """``dryrun._measure`` of xlstm-350m's smoke config at
+    ``lengths[2]`` tokens in a fake world of 2 (mesh 1x2): extrapolated
+    from ``lengths[:2]`` or traced directly.  (flops, bytes, collective
+    bytes, collective counts, memory, ``seq_extrapolated``)."""
+    import torch
+    torch.set_num_threads(1)
+    cfg = get_config("xlstm-350m", smoke=True)
+    shape = InputShape("x", lengths[2], 4, kind)
+    with fake_world(2):
+        f, b, c, coll, a = dryrun._measure(
+            cfg, shape, _mesh("1x2"),
+            seq=lengths[:2] if extrapolate else None)
+    return f, b, c, coll["counts"], a["memory"], a.get("seq_extrapolated")

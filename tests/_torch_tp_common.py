@@ -1,4 +1,4 @@
-"""Rank-side halves of ``tests/test_torch_tp_forward.py``: the federations
+"""Rank-side halves of ``tests/test_torch_tp_forward*.py``: the federations
 it runs (the MLP, the CNN and a small dense LM), the run every engine is
 held to with planes carried in the unsharded layout, and what each rank
 of the 4-rank gloo world computes.  Like ``_torch_mesh_common``, this
@@ -284,21 +284,24 @@ def lm_grads_tp(mesh, case):
 
 
 # ------------------------------------------------------------ the rank
-def tp_rank(rank, init_trees, draws, inputs):
-    """Every (family, mesh, kind) case on this rank: the run's results in
-    the unsharded layout, the fedagg shapes, the model-axis plane gathers
-    of each block, and the operations' gradients; then how an MoE
-    engine builds on 1x2 with and without the TP forward."""
+def tp_rank(rank, init_trees, draws, inputs, meshes=MESHES, moe=True):
+    """Every (family, mesh, kind) case of ``meshes`` on this rank: the
+    run's results in the unsharded layout, the fedagg shapes, the
+    model-axis plane gathers of each block, and the operations' and the
+    LM's member gradients; then, with ``moe``, how an MoE engine builds on
+    1x2 with and without the TP forward."""
     out = {}
-    for shape in MESHES:
+    for shape in meshes:
         out[("ops", shape)] = op_grads_tp(make_mesh(shape))
         for case in LM_GRAD_CASES:
             out[(case, shape)] = lm_grads_tp(make_mesh(shape), case)
     for name, shapes in FAMILIES.items():
+        if name not in init_trees:
+            continue
         InjectedFedRAC.init_trees = init_trees[name]
         InjectedFedRAC.draws = draws[name]
         cls = engine_cls(name)
-        for shape in shapes:
+        for shape in (s for s in shapes if s in meshes):
             mesh = make_mesh(shape)
             for kind in KINDS:
                 if (name, kind) not in inputs:
@@ -314,6 +317,8 @@ def tp_rank(rank, init_trees, draws, inputs):
                 res["d_loc"] = {lvl: eng.plane_spec(lvl).d_loc
                                 for lvl in eng.assignment.members}
                 out[(name, shape, kind)] = res
+    if not moe:
+        return out
     # the MoE family on a 2D mesh: it builds with the TP forward (its TP
     # plane layout) and with the column-gather path
     from repro_torch.configs import get_config

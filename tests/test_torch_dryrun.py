@@ -16,8 +16,9 @@ smoke size on the CPU.
   leaves out), and the depth extrapolation of ``analyze`` equal to the
   full count for flops, bytes and collective bytes.
 * ``run_one``'s JSON keys are JAX's (``src/repro/launch/dryrun.py:388``,
-  ``analyze``'s result; ``fits_16g`` becomes ``fits_80g``), and the
-  decode shapes are reported as skipped.
+  ``analyze``'s result; ``fits_16g`` becomes ``fits_80g``), for a train
+  row and for a decode row on JAX's default "seq" cache; a row JAX skips
+  (long_500k for a full-attention arch) says why.
 * ``Roofline``: its terms, ``dominant``, ``useful_flops_ratio`` and the
   ``as_dict`` keys, as ``tests/test_hlo_analysis.py`` checks JAX's.
 """
@@ -129,8 +130,13 @@ def test_run_one_writes_jax_keys(tmp_path):
     assert res["chips"] == 256 and res["mesh"] == "16x16"
     assert res["roofline"]["flops_per_device"] >= (
         res["analytic"]["flops_per_device"])
-    skip = dryrun.run_one("olmo-1b", "decode_32k", True, str(tmp_path))
-    assert "sequence-sharded decode" in skip["skipped"]
+    dec = dryrun.run_one("olmo-1b", "decode_32k", True, str(tmp_path))
+    assert "error" not in dec, dec.get("error")
+    assert set(dec) == JAX_KEYS | {"wall_s", "variant"}
+    assert dec["kind"] == "decode" and dec["mesh"] == "2x16x16"
+    assert dec["collectives"]["total"] > 0
+    skip = dryrun.run_one("olmo-1b", "long_500k", False, str(tmp_path))
+    assert "sub-quadratic" in skip["skipped"]
 
 
 def test_roofline_terms():
