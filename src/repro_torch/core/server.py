@@ -409,8 +409,12 @@ class FedRAC:
     def init_params(self, level: int):
         """A level's initial parameters, drawn from a generator seeded with
         ``seed + level`` and moved to the device."""
-        g = torch.Generator().manual_seed(self.cfg.seed + level)
-        return self._to_device(self.family.init(g, level))
+        tracer = self.obs.tracer
+        with tracer.span("init_params.draw", cat="fl", level=level):
+            g = torch.Generator().manual_seed(self.cfg.seed + level)
+            params = self.family.init(g, level)
+        with tracer.span("init_params.to_device", cat="fl", level=level):
+            return self._to_device(params)
 
     def plane_spec(self, level: int):
         """Flat-plane recipe of one level (cached; built from a template
@@ -434,12 +438,14 @@ class FedRAC:
 
     def plane_of(self, level: int, params) -> torch.Tensor:
         """Ravel a params pytree into its (D_pad,) fp32 plane."""
-        return self.plane_spec(level).to_plane(params)
+        with self.obs.tracer.span("plane_of", cat="fl", level=level):
+            return self.plane_spec(level).to_plane(params)
 
     def params_of(self, level: int, plane):
         """Unravel a plane into a params pytree (views into the plane, or
         their copies out of a TP-layout plane)."""
-        return self.plane_spec(level).to_params(plane)
+        with self.obs.tracer.span("params_of", cat="fl", level=level):
+            return self.plane_spec(level).to_params(plane)
 
     # The JAX package commits planes, stacks and member rows to their mesh
     # shardings through these four.  The port's engine keeps the global
@@ -489,11 +495,15 @@ class FedRAC:
 
             def round_fn(params, batches, step_masks, weights, teacher):
                 C = step_masks.shape[0]
+                tracer = self.obs.tracer
                 p_stack = tree_map(lambda x: x.expand(C, *x.shape), params)
-                teachers = (self._teacher_logits(teacher, batches)
-                            if use_kd else None)
-                new_stack, losses = update(p_stack, batches, step_masks,
-                                           teachers)
+                teachers = None
+                if use_kd:
+                    with tracer.span("teacher_forward", cat="fl"):
+                        teachers = self._teacher_logits(teacher, batches)
+                with tracer.span("member_update", cat="fl"):
+                    new_stack, losses = update(p_stack, batches, step_masks,
+                                               teachers)
                 agg = aggregation.aggregate(new_stack, weights)
                 if want_stack:
                     return agg, losses, new_stack
@@ -809,16 +819,21 @@ class FedRAC:
 
         def one_round(g, bank_p, bank_w, total, idx, shards, step_masks,
                       weights, teacher):
+            # ranges that label the round's device work: never fenced
+            tracer = self.obs.tracer
             C = step_masks.shape[0]
             rows = torch.arange(C, device=g.device)[:, None, None]
             batches = vmap(self._batch_from_gathered)(
                 tree_map(lambda v: v[rows, idx], shards))
             params = member_params(g)
             p_stack = tree_map(lambda x: x.expand(C, *x.shape), params)
-            teachers = (self._teacher_logits(teacher, batches)
-                        if use_kd else None)
-            new_stack, losses = update(p_stack, batches, step_masks,
-                                       teachers)
+            teachers = None
+            if use_kd:
+                with tracer.span("teacher_forward", cat="fl"):
+                    teachers = self._teacher_logits(teacher, batches)
+            with tracer.span("member_update", cat="fl"):
+                new_stack, losses = update(p_stack, batches, step_masks,
+                                           teachers)
             new_plane = member_block(new_stack)           # (C, D_pad/m)
             denom = torch.where(total > 0.0, total, torch.ones_like(total))
             agg = aggregation.aggregate_plane(new_plane, weights / denom)
@@ -897,6 +912,45 @@ class FedRAC:
         planes."""
         cfg = self.cfg
         C = len(members)
+        with self.obs.tracer.span("dispatch.prepare", cat="fl",
+                                  level=level):
+            cap, prog, args, h2d = self._prepare_block(
+                level, members, r0, n_rounds, teacher, teacher_planes,
+                weights, step_masks, bank, want_history)
+        banked, bank = bank is not None, args[-1]
+        with self.obs.tracer.span("block_exec", cat="fl", level=level,
+                                  R=n_rounds, capacity=cap, members=C):
+            new_plane, bank_out, losses, history = prog(plane, *args)
+            if cfg.donate_plane:
+                new_plane = plane.copy_(new_plane)
+                if banked:
+                    bank_out = (bank[0].copy_(bank_out[0]), bank_out[1])
+            self.obs.tracer.fence(new_plane)
+        losses = losses[:, :C]
+        if self.obs.on:
+            reg = self.obs.registry
+            reg.counter("fl/dispatch_blocks").inc()
+            reg.counter("fl/dispatch_rounds").inc(n_rounds)
+            reg.counter("fl/h2d_bytes").inc(h2d)
+            # per-round member losses are the block's host-bound output
+            reg.counter("fl/d2h_bytes").inc(
+                losses.numel() * losses.element_size())
+            if self.mesh is not None:
+                # one all_reduce over the data axis per round
+                reg.counter("fl/psum_count").inc(n_rounds)
+        return DispatchOut(plane=new_plane, losses=losses, bank=bank_out,
+                           history=history)
+
+    def _prepare_block(self, level, members, r0, n_rounds, teacher,
+                       teacher_planes, weights, step_masks, bank,
+                       want_history):
+        """The host work of ``dispatch_rounds`` before its block is
+        enqueued: the shard pack, the index draws, and the masks, weights
+        and indices padded to the capacity on the device.  Returns the
+        capacity, the block program, its arguments after the plane and the
+        bytes copied to the device."""
+        cfg = self.cfg
+        C = len(members)
         cap = self._capacity(C)
         balanced = cfg.class_balanced and level == 0
         use_kd = cfg.use_kd and (teacher is not None
@@ -949,29 +1003,7 @@ class FedRAC:
             bank = (bank[0], bank[1],
                     torch.as_tensor(bank[2], dtype=torch.float32
                                     ).to(self.device))
-        with self.obs.tracer.span("block_exec", cat="fl", level=level,
-                                  R=n_rounds, capacity=cap):
-            new_plane, bank_out, losses, history = prog(
-                plane, pack["shards"], idx, masks, w, t_arg, bank)
-            if cfg.donate_plane:
-                new_plane = plane.copy_(new_plane)
-                if banked:
-                    bank_out = (bank[0].copy_(bank_out[0]), bank_out[1])
-            self.obs.tracer.fence(new_plane)
-        losses = losses[:, :C]
-        if self.obs.on:
-            reg = self.obs.registry
-            reg.counter("fl/dispatch_blocks").inc()
-            reg.counter("fl/dispatch_rounds").inc(n_rounds)
-            reg.counter("fl/h2d_bytes").inc(h2d)
-            # per-round member losses are the block's host-bound output
-            reg.counter("fl/d2h_bytes").inc(
-                losses.numel() * losses.element_size())
-            if self.mesh is not None:
-                # one all_reduce over the data axis per round
-                reg.counter("fl/psum_count").inc(n_rounds)
-        return DispatchOut(plane=new_plane, losses=losses, bank=bank_out,
-                           history=history)
+        return cap, prog, (pack["shards"], idx, masks, w, t_arg, bank), h2d
 
     # ------------------------------------------------------------ training
     def _train_cluster(self, level: int, members: list[int], n_rounds: int,
@@ -1072,10 +1104,12 @@ class FedRAC:
         return params, history
 
     def evaluate(self, level: int, params, test) -> float:
-        test = self._to_device(test)
-        with torch.no_grad():
-            _, logits = self.family.loss_and_logits(level, params, test)
-        return float((torch.argmax(logits, -1) == test["y"]).float().mean())
+        with self.obs.tracer.span("evaluate", cat="fl", level=level):
+            test = self._to_device(test)
+            with torch.no_grad():
+                _, logits = self.family.loss_and_logits(level, params, test)
+            return float((torch.argmax(logits, -1) == test["y"]).float()
+                         .mean())
 
     def train(self, test, rounds_per_cluster: dict | None = None
               ) -> FedRACResult:
@@ -1084,8 +1118,11 @@ class FedRAC:
         members = self.assignment.members
         n_rounds = {l: (rounds_per_cluster or {}).get(l, cfg.rounds)
                     for l in range(self.m)}
-        master_params, hist0 = self._train_cluster(0, members.get(0, []),
-                                                   n_rounds[0], test)
+        tracer = self.obs.tracer
+        with tracer.span("cluster", cat="fl", level=0,
+                         members=len(members.get(0, []))):
+            master_params, hist0 = self._train_cluster(
+                0, members.get(0, []), n_rounds[0], test)
         history = {0: hist0}
         final = {0: hist0[-1] if hist0 else 0.0}
         self.master_params = master_params
@@ -1096,8 +1133,10 @@ class FedRAC:
                 history[level] = []
                 final[level] = float("nan")
                 continue
-            p, h = self._train_cluster(level, mem, n_rounds[level], test,
-                                       teacher=master_params)
+            with tracer.span("cluster", cat="fl", level=level,
+                             members=len(mem)):
+                p, h = self._train_cluster(level, mem, n_rounds[level],
+                                           test, teacher=master_params)
             history[level] = h
             final[level] = h[-1] if h else 0.0
             self.cluster_params[level] = p

@@ -7,7 +7,10 @@ Drives resource-aware clustering (Procedure 1, Table III vectors) ->
 compaction -> participant assignment (Procedure 2) -> master FedAvg ->
 slave KD training, and prints per-cluster / global accuracy and the MAR
 analysis (Eq. 9 parallel vs Eq. 10 sequential).  The flags are the JAX
-launcher's, plus ``--device`` (``cuda`` by default).
+launcher's, plus ``--device`` (``cuda`` by default) and ``--profile-out
+PATH``, which runs ``train()`` under ``torch.profiler`` with the engine's
+tracer on and writes the profiler's Chrome trace there: the engine's spans
+as ``port.<name>`` ranges on one timeline with the kernels and copies.
 """
 from __future__ import annotations
 
@@ -54,7 +57,11 @@ def run(args):
     print(f"compacted to m={eng.m}; members per cluster: "
           f"{ {l: len(v) for l, v in eng.assignment.members.items()} }; "
           f"demotions={eng.assignment.demotions}")
-    res = eng.train({"x": test.x, "y": test.y})
+    test = {"x": test.x, "y": test.y}
+    if args.profile_out:
+        res = profiled_train(eng, test, args.profile_out)
+    else:
+        res = eng.train(test)
     for lvl in range(eng.m):
         h = res.history.get(lvl, [])
         print(f"cluster C{lvl + 1}: final_acc="
@@ -68,6 +75,24 @@ def run(args):
     seq = cost_model.mar_sequential(T_m, cfg.kappa, eng.m)
     print(f"MAR: parallel(Eq.9)={par:.2f}s  sequential(Eq.10)={seq:.2f}s  "
           f"speedup={seq / par:.2f}x")
+    return res
+
+
+def profiled_train(eng, test, path):
+    """``eng.train(test)`` under ``torch.profiler`` with the engine's
+    tracer on (unfenced); the profiler's Chrome trace goes to ``path``."""
+    import torch
+    from repro_torch.obs import make_observability
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if eng.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    eng.obs = make_observability(trace=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        res = eng.train(test)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+    prof.export_chrome_trace(str(path))
+    print(f"profile: {len(eng.obs.tracer.events())} spans -> {path}")
     return res
 
 
@@ -90,6 +115,9 @@ def main(argv=None):
     ap.add_argument("--no-kd", action="store_true")
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--profile-out", default=None, metavar="PATH",
+                    help="write a torch.profiler Chrome trace of train(), "
+                         "the engine's spans drawn as port.* ranges")
     args = ap.parse_args(argv)
     return run(args)
 

@@ -6,6 +6,12 @@ call sites hold a tracer reference that defaults to ``NULL_TRACER`` — whose
 ``span()`` returns a shared no-op context manager, so the disabled fast
 path costs a single attribute lookup + two empty calls per span.
 
+**On the profiler's clock.**  While a recording tracer holds a span open it
+also holds a ``torch.profiler.record_function("port.<name>")`` range
+open, so a running ``torch.profiler`` draws the program's spans on the
+same timeline as the kernels and copies they launched.  The null tracer
+enters no range.  Retroactive ``complete`` records are the tracer's alone.
+
 **Fencing.**  CUDA launches are asynchronous: a span closing right after a
 kernel launch measures *submission*, not execution.  ``Tracer(fence=True)``
 makes ``tracer.fence(x)`` call ``torch.cuda.synchronize`` on the device of
@@ -19,8 +25,11 @@ import json
 import time
 
 
+RANGE_PREFIX = "port."
+
+
 class _Span:
-    __slots__ = ("_tracer", "name", "cat", "args", "_t0")
+    __slots__ = ("_tracer", "name", "cat", "args", "_t0", "_range")
 
     def __init__(self, tracer, name, cat, args):
         self._tracer = tracer
@@ -29,6 +38,9 @@ class _Span:
         self.args = args
 
     def __enter__(self):
+        from torch.profiler import record_function
+        self._range = record_function(RANGE_PREFIX + self.name)
+        self._range.__enter__()
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -36,6 +48,7 @@ class _Span:
         t1 = time.perf_counter_ns()
         self._tracer._events.append(
             (self.name, self.cat, self._t0, t1 - self._t0, self.args))
+        self._range.__exit__(*exc)
         return False
 
 
