@@ -26,7 +26,9 @@ rides the block's round loop, merged into each round's FedAvg by the fedagg
 kernel.  A dispatch block takes a fixed KD teacher or an (R, D_master)
 stack of per-round teacher planes (the simulator's path).  ``self.obs``
 (``NULL_OBS`` unless set) counts transfers, blocks and program builds and
-traces the block and pack spans, as in the JAX package.
+traces the block and pack spans, as in the JAX package; it also counts the
+initial draws' segments (``fl/init_draw_segments``) and the levels drawn
+serially (``fl/init_draw_serial_levels``; ``core.init_draw``).
 
 Everything runs on ``device``: ``cuda`` unless the caller asks for ``cpu``.
 
@@ -58,7 +60,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch.core import aggregation, assignment as asg, clustering
-from repro_torch.core import compaction, cost_model, rounds as rnd
+from repro_torch.core import compaction, cost_model, init_draw, rounds as rnd
 from repro_torch.core.client import local_update, make_cluster_update
 from repro_torch.core.plane import (make_plane_spec, make_tp_plane_spec,
                                     plane_specs)
@@ -260,6 +262,8 @@ class FedRAC:
         self.obs = NULL_OBS
         self._programs = {}               # program key -> _Program
         self._plane_specs = {}            # level -> PlaneSpec
+        self._draw_plans = {}             # level -> init_draw.DrawPlan
+        self._init_draws = None           # the train() call's InitDraws
         self._shard_packs = {}            # (level, members, cap, bal) -> pack
         # newest pack per (level, capacity, balanced): the base of a delta
         # update when membership churns
@@ -408,13 +412,34 @@ class FedRAC:
     # ------------------------------------------------------------ params
     def init_params(self, level: int):
         """A level's initial parameters, drawn from a generator seeded with
-        ``seed + level`` and moved to the device."""
+        ``seed + level`` and moved to the device.  The draw runs as segments
+        of the generator's stream on host threads (``core.init_draw``), with
+        the serial draw's values: queued by ``train()`` at its start, else
+        here; ``init_params.draw`` is the wait for the level's tree."""
         tracer = self.obs.tracer
         with tracer.span("init_params.draw", cat="fl", level=level):
-            g = torch.Generator().manual_seed(self.cfg.seed + level)
-            params = self.family.init(g, level)
+            draws = self._init_draws
+            if draws is not None and level in draws:
+                params, segments = draws.take(level)
+            else:
+                with init_draw.InitDraws(init_draw.workers()) as own:
+                    self._queue_draw(own, level)
+                    params, segments = own.take(level)
+        if self.obs.on:
+            reg = self.obs.registry
+            reg.counter("fl/init_draw_segments").inc(segments)
+            if segments == 1:
+                reg.counter("fl/init_draw_serial_levels").inc()
         with tracer.span("init_params.to_device", cat="fl", level=level):
             return self._to_device(params)
+
+    def _queue_draw(self, draws: "init_draw.InitDraws", level: int) -> None:
+        """Queue a level's draw; its plan (shapes only) is cached."""
+        if level not in self._draw_plans:
+            self._draw_plans[level] = init_draw.plan_draws(self.family.init,
+                                                           level)
+        draws.submit(self.family.init, level, self.cfg.seed + level,
+                     self._draw_plans[level])
 
     def plane_spec(self, level: int):
         """Flat-plane recipe of one level (cached; built from a template
@@ -1113,6 +1138,21 @@ class FedRAC:
 
     def train(self, test, rounds_per_cluster: dict | None = None
               ) -> FedRACResult:
+        """Train the master, then each slave with members.  Their initial
+        draws are queued on host threads first, so a slave's draw runs
+        behind the master's training; nothing drawn outlives the call."""
+        members = self.assignment.members
+        self._init_draws = init_draw.InitDraws(init_draw.workers())
+        try:
+            for level in range(self.m):
+                if level == 0 or members.get(level):
+                    self._queue_draw(self._init_draws, level)
+            return self._train(test, rounds_per_cluster)
+        finally:
+            self._init_draws.close()
+            self._init_draws = None
+
+    def _train(self, test, rounds_per_cluster: dict | None) -> FedRACResult:
         cfg = self.cfg
         test = self._to_device(test)
         members = self.assignment.members
