@@ -55,7 +55,8 @@ def readings(cell, seed: int, device: str, variants=VARIANTS) -> dict:
     cfg, fl = cell["config"], cell["traffic"]["fl"]
     dev = torch.device(device)
     fed = traffic.generate(cell["traffic"], cfg, seed)
-    classes = program.kind_module(cfg).classes(cfg)
+    kind = program.kind_module(cfg)
+    classes = kind.classes(cfg)
     kd = fl["use_kd"]
 
     def run(num=FP32, fault=None, **kw):
@@ -87,8 +88,8 @@ def readings(cell, seed: int, device: str, variants=VARIANTS) -> dict:
             judge = (with_slaves(ref, run(
                 levels=slaves, teacher=got["levels"][0]["final"]))
                 if kd and slaves else ref)
-        out[v] = check.numbers(as_program(got, cfg["kind"] == "cnn"), judge,
-                               fed["n_test"], kd)
+        out[v] = check.numbers(as_program(got, kind.EVAL_IS_ACCURACY),
+                               judge, fed["n_test"], kd)
     return out
 
 

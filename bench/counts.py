@@ -7,7 +7,8 @@ output byte written once, and the operations these inputs need; the
 least time is the larger of bytes over the memory rate and operations
 over the tensor-core peak.  The FLOP counts are the work the objective
 needs, not what the program happens to run: padded member rows,
-recomputation and unread logits are left out (``flops_per_call``).
+recomputation and unread logits are left out (``call_flops``, with a
+sample's count from the kind's ``flops_per_call`` in ``bench/kinds/``).
 """
 from __future__ import annotations
 
@@ -123,14 +124,15 @@ def lm_train(cfg: dict, level: int, S: int, head_positions: int) -> float:
     return 3.0 * lm_forward(cfg, level, S, head_positions)
 
 
-def flops_per_call(kind: str, cfg: dict, traffic: dict, members: dict,
-                   n_test: int) -> float:
+def call_flops(traffic: dict, members: dict, n_test: int,
+               level_flops) -> float:
     """Model FLOPs one ``FedRAC.train()`` call needs: every real member's
     local steps (``members``: level -> member count), the master's
     forward as teacher for each KD member batch, and one evaluation of
-    the test set per round and trained level.  The LM's head counts at
-    the positions its loss reads: all but the last under CE, the last
-    under KD; the teacher's and the KD student's head at the last one."""
+    the test set per round and trained level.  ``level_flops(level, kd)``
+    is the kind's count of one sample at ``level``: (a training step, the
+    master's forward as its teacher, an evaluation); each kind's
+    ``flops_per_call`` (``bench/kinds/``) gives it."""
     fl = traffic["fl"]
     per_member = fl["rounds"] * fl["steps_per_round"] * fl["local_batch"]
     total = 0.0
@@ -138,15 +140,7 @@ def flops_per_call(kind: str, cfg: dict, traffic: dict, members: dict,
         if n == 0:
             continue
         kd = fl["use_kd"] and level > 0
-        if kind == "cnn":
-            step = cnn_train(cfg, level)
-            teacher = cnn_forward(cfg, 0)
-            evaluation = cnn_forward(cfg, level)
-        else:
-            S = traffic["seq"]
-            step = lm_train(cfg, level, S, 1 if kd else S - 1)
-            teacher = lm_forward(cfg, 0, S, 1)
-            evaluation = lm_forward(cfg, level, S, S - 1)
+        step, teacher, evaluation = level_flops(level, kd)
         total += n * per_member * (step + (teacher if kd else 0.0))
         total += fl["rounds"] * n_test * evaluation
     return total

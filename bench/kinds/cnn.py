@@ -1,7 +1,10 @@
 """The paper's CNN family of the program (``core.families.cnn_family``)."""
 from __future__ import annotations
 
+from bench import counts
+
 UNIT = "samples"
+EVAL_IS_ACCURACY = True     # the check compares evaluations in test samples
 
 
 def family(cfg: dict):
@@ -25,3 +28,13 @@ def engine_base(srv):
 
 def units_per_sample(traffic: dict) -> int:
     return 1
+
+
+def flops_per_call(cfg: dict, traffic: dict, members: dict,
+                   n_test: int) -> float:
+    """Model FLOPs of a ``train()`` call (``counts.call_flops``): a
+    sample's training step, the master's forward as teacher, an
+    evaluation's forward."""
+    return counts.call_flops(traffic, members, n_test, lambda level, kd: (
+        counts.cnn_train(cfg, level), counts.cnn_forward(cfg, 0),
+        counts.cnn_forward(cfg, level)))

@@ -3,7 +3,10 @@
 token federation's engine hooks."""
 from __future__ import annotations
 
+from bench import counts
+
 UNIT = "tokens"
+EVAL_IS_ACCURACY = False    # evaluation is minus the LM loss: relative gaps
 # the configuration file's keys that are ModelConfig fields
 MODEL_KEYS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
               "d_ff", "vocab_size", "norm_type", "rope_theta",
@@ -45,3 +48,16 @@ def engine_base(srv):
 
 def units_per_sample(traffic: dict) -> int:
     return traffic["seq"]
+
+
+def flops_per_call(cfg: dict, traffic: dict, members: dict,
+                   n_test: int) -> float:
+    """Model FLOPs of a ``train()`` call (``counts.call_flops``) for dense
+    decoder blocks.  The head counts at the positions its loss reads: all
+    but the last under CE, the last under KD; the teacher's and the KD
+    student's head at the last one."""
+    S = traffic["seq"]
+    return counts.call_flops(traffic, members, n_test, lambda level, kd: (
+        counts.lm_train(cfg, level, S, 1 if kd else S - 1),
+        counts.lm_forward(cfg, 0, S, 1),
+        counts.lm_forward(cfg, level, S, S - 1)))

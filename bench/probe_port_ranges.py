@@ -19,12 +19,12 @@ Two readings, printed as one JSON line:
   ``device_ms_by_launch``, each kernel counted once, in the innermost
   range whose host interval holds the runtime call that launched it (the
   launch's correlation id), with ``device_ms_union_by_launch`` the union
-  of those kernels' intervals across streams.
+  of those kernels' intervals across streams (``timeline.launch_ranges``,
+  which a traced benchmark run's ``run.ranges`` read too).
 """
 from __future__ import annotations
 
 import argparse
-import bisect
 import json
 import statistics
 import sys
@@ -36,8 +36,6 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 from bench import manifest, program, timeline  # noqa: E402
 from bench import traffic as tg  # noqa: E402
-
-PREFIXES = ("port.", "bench.")
 
 
 def spread(values):
@@ -112,22 +110,22 @@ def probe(cell: dict, seed: int, pairs: int, device: str = "cuda") -> dict:
     return out
 
 
-def is_range(name: str) -> bool:
-    return name.startswith(PREFIXES)
-
-
 def reduce(prof, torch) -> dict:
-    """The profiled call's window, busy and idle time, its gaps named by
-    the innermost range, and device ms per ``port.`` range."""
+    """A profiled call under the benchmark's ``bench.train`` range: its
+    window, busy and idle time, its gaps named by the innermost ``port.``
+    or ``bench.`` range covering most of each, the host intervals of each
+    ``port.`` range, each range's ``device_time_total`` in the profiler's
+    event tree (which counts a kernel in every range around it, on every
+    stream) and its device ms by launch (``timeline.launch_ranges``)."""
     cuda = torch.autograd.DeviceType.CUDA
     evs = prof.events()
     rng = [(e.name, e.time_range.start, e.time_range.end) for e in evs
-           if e.device_type != cuda and is_range(e.name)]
+           if e.device_type != cuda and timeline.is_range(e.name)]
     w0, w1 = next((s, t) for n, s, t in rng if n == "bench.train")
     dev = [(max(e.time_range.start, w0), min(e.time_range.end, w1))
            for e in evs if e.device_type == cuda
            and not getattr(e, "is_user_annotation", False)
-           and not is_range(e.name)
+           and not timeline.is_range(e.name)
            and e.time_range.end > w0 and e.time_range.start < w1]
     busy = timeline.union(dev)
     busy_us = sum(t - s for s, t in busy)
@@ -149,60 +147,24 @@ def reduce(prof, torch) -> dict:
     gap_s = {}
     for n, s in named:
         gap_s[n] = gap_s.get(n, 0.0) + s
-    names = sorted({n for n, _, _ in rng if n.startswith("port.")})
+    names = sorted({n for n, _, _ in rng if n.startswith(timeline.PORT)})
     tree = {n: sum(e.device_time_total for e in evs if e.name == n) / 1e3
             for n in names}
+    by, totals = timeline.launch_ranges(prof, torch)
+    counted = {n: r for n, r in by.items() if r["kernels"]}
     return {"window_s": (w1 - w0) / 1e6, "busy_s": busy_us / 1e6,
             "idle_share": 100 * (1 - busy_us / (w1 - w0)),
             "gaps_top": named[:12], "gap_s_by_range": gap_s,
             "ranges": {n: sum(r[0] == n for r in rng) for n in names},
-            "device_ms_tree": tree, **by_launch(prof, cuda)}
-
-
-def by_launch(prof, cuda) -> dict:
-    """Each kernel's device ms, counted once, in the innermost ``port.``
-    range whose host interval holds the start of the runtime call that
-    launched it (the kernel's correlation id)."""
-    raw = prof.profiler.kineto_results.events()
-    ivals, runtime, kernels = {}, {}, []
-    for e in raw:
-        n = e.name()
-        if e.device_type() == cuda:
-            if not e.is_user_annotation() and not is_range(n):
-                kernels.append(e)
-        elif n.startswith("port."):
-            ivals.setdefault(n, []).append((e.start_ns(), e.end_ns()))
-        elif n.startswith("cu"):
-            runtime[e.correlation_id()] = e.start_ns()
-    for v in ivals.values():
-        v.sort()
-    ms, spans_of = {}, {}
-    unranged = unmatched = total = 0.0
-    for k in kernels:
-        d = k.duration_ns() / 1e6
-        total += d
-        t0 = runtime.get(k.correlation_id())
-        if t0 is None:
-            unmatched += d
-            continue
-        best, width = None, None
-        for n, iv in ivals.items():
-            j = bisect.bisect_right(iv, (t0, float("inf"))) - 1
-            if j >= 0 and iv[j][0] <= t0 <= iv[j][1]:
-                w = iv[j][1] - iv[j][0]
-                if width is None or w < width:
-                    best, width = n, w
-        if best is None:
-            unranged += d
-            continue
-        ms[best] = ms.get(best, 0.0) + d
-        spans_of.setdefault(best, []).append((k.start_ns(), k.end_ns()))
-    union = {n: sum(b - a for a, b in timeline.union(v)) / 1e6
-             for n, v in spans_of.items()}
-    return {"device_ms_by_launch": ms, "device_ms_union_by_launch": union,
-            "device_ms_unranged": unranged,
-            "device_ms_unmatched": unmatched,
-            "device_ms_kernels_total": total, "n_kernels": len(kernels)}
+            "device_ms_tree": tree,
+            "device_ms_by_launch": {n: r["sum_ms"]
+                                    for n, r in counted.items()},
+            "device_ms_union_by_launch": {n: r["union_ms"]
+                                          for n, r in counted.items()},
+            "device_ms_unranged": totals["unranged_ms"],
+            "device_ms_unmatched": totals["unmatched_ms"],
+            "device_ms_kernels_total": totals["total_ms"],
+            "n_kernels": totals["n_kernels"]}
 
 
 def main(argv=None) -> int:

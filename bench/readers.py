@@ -1,5 +1,14 @@
 """Shared arithmetic of the per-layer metric readers (``metrics/``).  A
-reader returns None when its run holds nothing for it to read."""
+reader returns None when its run holds nothing for it to read.
+
+What a traced run hands a reader (``run``): ``spans`` and ``calls`` (the
+benchmark's spans; the calls that timed them), ``port_events`` and
+``counters`` (the program's tracer events and its registry's counters
+in those calls), ``profile`` (``timeline.reduce_profile`` of the
+profiled calls) with ``kernel_calls`` (the kernels' recorded shapes in
+them), ``ranges`` (``timeline.program_ranges`` of the one call profiled
+with the program's ranges), ``clean_calls`` and ``clean_s`` (the
+untraced calls), ``flops_per_call`` (the kind's model FLOPs)."""
 from __future__ import annotations
 
 from bench import counts
@@ -62,3 +71,11 @@ def mfu(run):
         return None
     return (100.0 * run.flops_per_call * run.clean_calls
             / (run.clean_s * counts.TF32_FLOPS_PER_S))
+
+
+def range_ms(run, name: str):
+    """Device milliseconds of the kernels launched inside the program's
+    innermost ``name`` ranges in the ranges call, their union across
+    streams.  None where the range launched no kernel (as on the CPU)."""
+    r = run.ranges.get(name)
+    return r["union_ms"] if r and r["kernels"] else None

@@ -16,10 +16,13 @@ or returned a non-finite member loss.
 
 ``--trace 1`` profiles the window's first ``trace_calls`` calls
 (``workloads/<cell>.json``) with ``torch.profiler``, the benchmark's
-spans marking the host's phases on its timeline; the calls after them
-take turns: one with the benchmark's spans and the program's fenced
-spans timed, one as the untraced window runs, which ``mfu`` reads.  It
-reports the cell's per-layer metrics instead of the end-to-end ones.
+spans marking the host's phases on its timeline; then one call profiled
+apart with the program's tracer on, unfenced, so that its spans are
+``port.<name>`` ranges on the kernels' timeline (``run.ranges``); the
+calls after them take turns: one with the benchmark's spans and the
+program's fenced spans timed (``run.port_events``, ``run.counters``),
+one as the untraced window runs, which ``mfu`` reads.  It reports the
+cell's per-layer metrics instead of the end-to-end ones.
 
 After the window the last call's output is held against the plain
 reference (``check.py``); a KD slave's reference distils from the
@@ -100,7 +103,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
     ``cell`` is a cell's name or its ``manifest.cell`` dict; the harness's
     own tests pass a dict cut to a small size, and ``device="cpu"``."""
     import torch
-    from bench import check, counts, manifest, program, timeline
+    from bench import check, manifest, program, timeline
     from bench.reference import fedrac
     from bench.reference.numerics import FP32
     t0 = T0 if t0 is None else t0
@@ -125,8 +128,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
     units_per_call = (sum(members.values()) * fl["rounds"]
                       * fl["steps_per_round"] * fl["local_batch"]
                       * kind.units_per_sample(traffic))
-    flops_per_call = counts.flops_per_call(cfg["kind"], cfg, traffic,
-                                           members, fed["n_test"])
+    flops_per_call = kind.flops_per_call(cfg, traffic, members,
+                                         fed["n_test"])
     emit({"cell": name, "seed": seed, "layout": lay,
           "units_per_call": units_per_call, "unit": kind.UNIT,
           "model_flops_per_call": flops_per_call,
@@ -162,31 +165,38 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
                     q.shape[0], k.shape[0], q.shape[1], q.shape[2],
                     q.element_size(), bool(causal), int(window)))}
         span_obs = make_observability(trace=True, fence=True)
+        range_obs = make_observability(trace=True, fence=False)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
     quiet_obs = eng.obs
     warm_peak = torch.cuda.max_memory_allocated() if on_card else 0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     n_prof = cell["trace_calls"] if trace else 0
-    prof, attempted, failed, calls = None, 0, 0, 0
+    prof, range_prof, attempted, failed, calls = None, None, 0, 0, 0
     call_s, phases = [], []
     error = None
     t_start = time.perf_counter()
     t_setup = time.time() - t0
     while True:
-        # profiled calls, then timed spans and untraced calls in turn
-        phase = "clean" if not trace else "prof" if calls < n_prof else (
-            "spans", "clean")[(calls - n_prof) % 2]
+        # profiled calls, the program's ranges profiled, then timed spans
+        # and untraced calls in turn
+        phase = ("clean" if not trace else "prof" if calls < n_prof
+                 else "ranges" if calls == n_prof
+                 else ("spans", "clean")[(calls - n_prof - 1) % 2])
         eng.block_losses = []
         spans.call, spans.on = calls, phase != "clean"
         spans.fences = phase == "spans"
-        eng.obs = span_obs if phase == "spans" else quiet_obs
+        eng.obs = (span_obs if phase == "spans" else range_obs
+                   if phase == "ranges" else quiet_obs)
         if phase == "prof" and prof is None:
-            prof = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA])
+            prof = torch.profiler.profile(activities=acts)
             prof.start()
             for r in recorders.values():
                 r.active = True
+        if phase == "ranges":
+            range_prof = torch.profiler.profile(activities=acts)
+            range_prof.start()
         t_call = time.perf_counter()
         try:
             with spans.span("train", fence=True):
@@ -208,6 +218,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
             prof.stop()
             for r in recorders.values():
                 r.active = False
+        if phase == "ranges":
+            range_prof.stop()
         if now - t_start >= seconds and (
                 not trace or {"spans", "clean"} <= set(phases)):
             break
@@ -222,16 +234,18 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
     if trace and error is None:
         for r in recorders.values():
             r.restore()
-        emit({"counters": span_obs.registry.snapshot()["counters"]})
+        counters = span_obs.registry.snapshot()["counters"]
+        emit({"counters": counters})
         profile = timeline.reduce_profile(prof, torch)
-        del prof
+        ranges = timeline.program_ranges(range_prof, torch)
+        del prof, range_prof
         run = SimpleNamespace(
             spans=spans,
             calls={i for i, p in enumerate(phases) if p == "spans"},
             clean_calls=phases.count("clean"),
             clean_s=sum(t for t, p in zip(call_s, phases) if p == "clean"),
-            port_events=span_obs.tracer.events(),
-            profile=profile, flops_per_call=flops_per_call,
+            port_events=span_obs.tracer.events(), counters=counters,
+            ranges=ranges, profile=profile, flops_per_call=flops_per_call,
             kernel_calls={k: r.calls for k, r in recorders.items()})
         for m in cell["per_layer"]:
             value = manifest.reader(m["name"]).read(run)
@@ -253,7 +267,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
     # once the program's state is freed
     values = {}
     if error is None:
-        prog = check.program_outputs(eng, result, cfg["kind"] == "cnn")
+        prog = check.program_outputs(eng, result, kind.EVAL_IS_ACCURACY)
         del eng, result
         gc.collect()
         if on_card:

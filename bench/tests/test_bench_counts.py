@@ -1,11 +1,13 @@
-"""``bench/counts.py`` against hand counts on tiny configurations, and the
+"""``bench/counts.py`` against hand counts on tiny configurations, the
 CNN's forward count against PyTorch's FLOP counter on the plain
-reference."""
+reference, and each kind's count of its cell's call equal to what the
+benchmark printed before the kinds owned their counts."""
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from bench import counts
+from bench import counts, manifest, program
+from bench.kinds import lm as lm_kind
 from bench.reference import cnn as ref_cnn
 from bench.reference.numerics import FP32
 
@@ -56,7 +58,23 @@ def test_flops_per_call_by_hand():
             + 30 * (counts.lm_train(LM, 1, 4, 1)
                     + counts.lm_forward(LM, 0, 4, 1))
             + 2 * 7 * counts.lm_forward(LM, 1, 4, 3))
-    got = counts.flops_per_call("lm", LM, traffic, {0: 2, 1: 1, 2: 0}, 7)
+    got = lm_kind.flops_per_call(LM, traffic, {0: 2, 1: 1, 2: 0}, 7)
+    assert got == want
+
+
+# model_flops_per_call of the two cells' layouts as the benchmark printed
+# it before each kind owned its count: the same bits
+CELL_FLOPS = [("cnn.paper40_kd", {0: 39, 1: 1}, 54704672768000.0),
+              ("olmo1b.fl14_kd", {0: 6, 1: 8}, 270876675145728.0)]
+
+
+@pytest.mark.parametrize("name,members,want", CELL_FLOPS)
+def test_each_kind_counts_its_cell_as_before(name, members, want):
+    cell = manifest.cell(name)
+    cfg, traffic = cell["config"], cell["traffic"]
+    n_test = traffic.get("test_samples", traffic.get("test_windows"))
+    got = program.kind_module(cfg).flops_per_call(cfg, traffic, members,
+                                                  n_test)
     assert got == want
 
 

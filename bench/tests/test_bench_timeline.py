@@ -1,7 +1,8 @@
 """The trace reduction on a hand-made timeline: the device's busy time
 is the union of its intervals inside the traced calls, host annotations
-drawn on the device's timeline are not device work, and each idle gap
-takes the name of the span the host spent most of it in."""
+(the benchmark's and the program's ranges) drawn on the device's
+timeline are not device work, and each idle gap takes the name of the
+span the host spent most of it in."""
 from types import SimpleNamespace
 
 import torch
@@ -40,3 +41,15 @@ def test_reduce_profile():
                                 "Memcpy HtoD": 1}
     assert [g[0] for g in p["gaps"]] == ["init_params", "evaluate", "train"]
     assert [round(g[1] * 1e6) for g in p["gaps"]] == [28, 22, 4]
+
+
+def test_the_programs_ranges_are_not_device_work():
+    # the program's spans drawn on the device's timeline, flagged or not
+    prof = Prof([
+        ev("bench.train", 0, 100),
+        ev("port.member_update", 0, 50, CUDA, annotation=True),
+        ev("port.teacher_forward", 50, 90, CUDA),
+        ev("gemm", 10, 20, CUDA)])
+    p = timeline.reduce_profile(prof, torch)
+    assert p["count_by_op"] == {"gemm": 1}
+    assert abs(p["busy_s"] - 10e-6) < 1e-12

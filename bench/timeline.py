@@ -12,13 +12,27 @@ entry points while the profiler runs, taken from the call's arguments.
 ``reduce_profile``: from a ``torch.profiler`` run, the device intervals
 (kernels, copies, sets), their union, the time by operation and the idle
 gaps named by the benchmark span the host spent most of each in.
+
+``program_ranges``: from a profiled call with the program's tracer on
+(its spans are ``port.<name>`` ranges), each range's device time, every
+kernel counted once in the innermost range that launched it
+(``launch_ranges``, which the stand-alone ``probe_port_ranges.py``
+reads as well).
 """
 from __future__ import annotations
 
+import bisect
 import time
 from contextlib import contextmanager, nullcontext
 
 _NULL = nullcontext()
+PORT = "port."                   # the program's spans as profiler ranges
+RANGE_PREFIXES = (PORT, "bench.")
+
+
+def is_range(name: str) -> bool:
+    """A host range of the program or the benchmark, not device work."""
+    return name.startswith(RANGE_PREFIXES)
 
 
 class Spans:
@@ -74,13 +88,14 @@ class KernelCalls:
 def device_events(prof, torch):
     """(name, start_us, end_us) of every device-side event: kernels, copies
     and sets, on the profiler's clock.  The profiler also draws each host
-    ``record_function`` range on the device's timeline; those are not
-    device work and are left out."""
+    ``record_function`` range on the device's timeline (the benchmark's
+    ``bench.`` and the program's ``port.`` ones); those are not device
+    work and are left out."""
     out = []
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(e, "is_user_annotation", False)
-                and not e.name.startswith("bench.")):
+                and not is_range(e.name)):
             out.append((e.name, e.time_range.start, e.time_range.end))
     return out
 
@@ -136,3 +151,62 @@ def reduce_profile(prof, torch):
     return {"window_s": (w1 - w0) / 1e6,
             "busy_s": sum(e - s for s, e in busy) / 1e6,
             "by_op": by_op, "count_by_op": count_by_op, "gaps": named}
+
+
+def launch_ranges(prof, torch):
+    """Device time of the program's ranges: each kernel counted once, in
+    the innermost ``port.`` range whose host interval holds the start of
+    the runtime call that launched it (the kernel's correlation id), so
+    that kernels launched from autograd's device thread count where their
+    backward ran.  Returns ({range name: {"count": host intervals,
+    "kernels", "sum_ms": their device ms, "union_ms": the union of their
+    intervals across streams}}, {"unranged_ms", "unmatched_ms",
+    "total_ms", "n_kernels"})."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ivals, runtime, kernels = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        n = e.name()
+        if e.device_type() == cuda:
+            if not e.is_user_annotation() and not is_range(n):
+                kernels.append(e)
+        elif n.startswith(PORT):
+            ivals.setdefault(n, []).append((e.start_ns(), e.end_ns()))
+        elif n.startswith("cu"):
+            runtime[e.correlation_id()] = e.start_ns()
+    for v in ivals.values():
+        v.sort()
+    ranges = {n: {"count": len(v), "kernels": 0, "sum_ms": 0.0,
+                  "union_ms": 0.0} for n, v in ivals.items()}
+    spans_of = {}
+    unranged = unmatched = total = 0.0
+    for k in kernels:
+        d = k.duration_ns() / 1e6
+        total += d
+        t0 = runtime.get(k.correlation_id())
+        if t0 is None:
+            unmatched += d
+            continue
+        best, width = None, None
+        for n, iv in ivals.items():
+            j = bisect.bisect_right(iv, (t0, float("inf"))) - 1
+            if j >= 0 and iv[j][0] <= t0 <= iv[j][1]:
+                w = iv[j][1] - iv[j][0]
+                if width is None or w < width:
+                    best, width = n, w
+        if best is None:
+            unranged += d
+            continue
+        ranges[best]["kernels"] += 1
+        ranges[best]["sum_ms"] += d
+        spans_of.setdefault(best, []).append((k.start_ns(), k.end_ns()))
+    for n, v in spans_of.items():
+        ranges[n]["union_ms"] = sum(b - a for a, b in union(v)) / 1e6
+    return ranges, {"unranged_ms": unranged, "unmatched_ms": unmatched,
+                    "total_ms": total, "n_kernels": len(kernels)}
+
+
+def program_ranges(prof, torch) -> dict:
+    """``launch_ranges``' ranges by the program's span name (``port.``
+    left off), as the per-layer readers get them (``run.ranges``)."""
+    return {n[len(PORT):]: r for n, r in launch_ranges(prof, torch)[0].items()}
+
