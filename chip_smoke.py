@@ -105,6 +105,16 @@ Phases, each printing one JSON line:
               kernel, the router's aux loss, the share of routing choices
               the capacity keeps; the kernels were checked at this path's
               shapes in phase 3;
+  14b. grouped_gemm the grouped GEMM kernels (rows, transposed rows, weight
+              gradients) at the benchmark cell granite_moe.fl14_kd's shapes
+              (each level's members, experts and width; skewed offsets with
+              empty groups and one group of a member's every row) against
+              ``ref.py`` in fp64, timed beside the per-group plain version
+              and the bound; then the cell's main path (``bench/``'s
+              configuration, traffic and engine: 4 of 24 layers, dropless
+              routing), one cold ``train()`` with a fresh registry current:
+              ``moe/grouped_gemm_launches`` and ``moe/routed_rows`` as the
+              code implies;
   15. moe_parity a small MoE federation whose capacity dispatch drops
               tokens, on the card and on the CPU from the same weights: the
               final planes must agree;
@@ -687,6 +697,156 @@ def check_flash(torch, ops, ref, dev, case):
     del reps, q, k, v
     torch.cuda.empty_cache()
     return out
+
+
+# the grouped GEMM kernels' largest error against ref.py in fp64, over the
+# fp64 product's largest entry: the rows kernels reduce over d or f (at
+# most 1,024 products), the weight gradient over a group's rows (up to a
+# member's 8,192), so its fp32 sums carry more rounding; a row or a group
+# out of place reads near 1
+GG_TOL = {"rows": 1e-5, "rows_transposed": 1e-5, "wgrad": 1e-4}
+GG_CELL, GG_SEED = "granite_moe.fl14_kd", 2_147_483_929
+
+
+def check_grouped_gemm(torch, ops, ref, dev, C, E, d, f, rows, seed):
+    """One level's three kinds of launch (C members' ``rows`` routed rows
+    each over E experts of width f, C * E groups): rows d -> f (the gate
+    and up products), transposed rows f -> d (their dX) and the weight
+    gradient (their dW).  Skewed offsets: member 0 sends every row to
+    expert 1 and none to the others, the rest draw their experts' shares
+    from Dirichlet(0.3).  Each against ref.py in fp64 (the per-group fp32
+    plain version's own error beside it), one launch a call by the
+    registry's count, then timed with the plain version and the bound."""
+    import numpy as np
+    from bench.kinds.moe import rows_work, wgrad_work
+    from repro_torch import obs
+    rng = np.random.default_rng(seed)
+    cnt = np.concatenate([np.eye(E, dtype=np.int64)[1] * rows] + [
+        rng.multinomial(rows, rng.dirichlet([0.3] * E))
+        for _ in range(C - 1)])
+    off = torch.as_tensor(np.concatenate([[0], np.cumsum(cnt)]),
+                          device=dev)
+    M, G = int(cnt.sum()), C * E
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(M, d, device=dev, generator=g)
+    w = torch.randn(G, d, f, device=dev, generator=g) * d ** -0.5
+    dy = torch.randn(M, f, device=dev, generator=g)
+    # (kernel, plain version, inputs, (bytes, operations) as the benchmark
+    # counts a launch)
+    cases = {"rows": (ops.grouped_rows, ref.grouped_rows, (x, w, off),
+                      rows_work(M, d, f, G)),
+             "rows_transposed": (
+                 lambda a, b, o: ops.grouped_rows(a, b, o, True),
+                 lambda a, b, o: ref.grouped_rows(a, b, o, True),
+                 (dy, w, off), rows_work(M, f, d, G)),
+             "wgrad": (ops.grouped_wgrad, ref.grouped_wgrad, (x, dy, off),
+                       wgrad_work(M, d, f, G))}
+    out = {"C": C, "E": E, "d": d, "f": f, "M": M, "G": G,
+           "rows_per_group": {"max": int(cnt.max()),
+                              "empty": int((cnt == 0).sum())}}
+    for kind, (kernel, plain, args, (nbytes, ops_n)) in cases.items():
+        with obs.observing(obs.make_observability(trace=False)) as o:
+            got = kernel(*args)
+        launches = int(o.registry.counter("moe/grouped_gemm_launches").value)
+        want = plain(*(a.double() if a.is_floating_point() else a
+                       for a in args))
+        scale = float(want.abs().max())
+        err = float((got.double() - want).abs().max()) / scale
+        plain_err = float((plain(*args).double() - want).abs().max()) / scale
+        del got, want
+        if err > GG_TOL[kind] or launches != 1:
+            raise AssertionError(f"grouped_gemm {kind} at C {C}, E {E}, d "
+                                 f"{d}, f {f}: error {err} of the largest "
+                                 f"entry (tolerance {GG_TOL[kind]}), "
+                                 f"{launches} launches")
+        b_ms, b_by = bound(nbytes, ops_n)
+        iters = ITERS_LARGE if nbytes > L2_BYTES else ITERS
+        reps = copies(args, nbytes)
+        out[kind] = {
+            "max_rel_err": err, "plain_max_rel_err": plain_err,
+            "tolerance": GG_TOL[kind], "launches": launches,
+            "ms": time_ms(kernel, reps, iters),
+            "plain_ms": time_ms(plain, reps, min(iters, 10)),
+            # no PyTorch call computes an fp32 grouped product
+            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "peak": PEAK_NAMES[FP32_FLOPS_PER_S],
+            "bound_tf32_ms": max(nbytes / HBM_BYTES_PER_S,
+                                 ops_n / 495e12) * 1e3}
+        del reps
+    del x, w, dy
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_grouped_gemm(torch, dev):
+    """The grouped GEMM kernels at the benchmark cell ``GG_CELL``'s shapes,
+    then the cell's main path: its configuration, traffic and engine
+    (``bench/``), one cold ``train()`` with a fresh registry current, the
+    launches and routed rows the program counts against what the code
+    implies (and ``bench/kinds/moe``'s count).  Emits two lines; returns
+    (the kernels' cases by level, the main path's record)."""
+    from bench import manifest, program, timeline
+    from bench import traffic as traffic_gen
+    from bench.kinds import moe as moe_kind
+    from repro_torch.core.scaling import compress_config
+    from repro_torch.kernels.grouped_gemm import ops, ref
+    from repro_torch.obs import make_observability
+    cell = manifest.cell(GG_CELL)
+    cfg, traffic = cell["config"], cell["traffic"]
+    fl, S = traffic["fl"], traffic["seq"]
+    L, K, B = cfg["n_layers"], cfg["experts_per_tok"], fl["local_batch"]
+    R, steps = fl["rounds"], fl["steps_per_round"]
+    fed = traffic_gen.generate(traffic, cfg, GG_SEED)
+    eng = program.build_engine(cfg, traffic, fed, GG_SEED, dev,
+                               timeline.Spans(torch, on=False, sync=True))
+    lay = {int(l): v for l, v in program.layout(eng).items()}
+    base = moe_kind.model_config(cfg)
+    cases = {}
+    for level, v in sorted(lay.items()):
+        lc = compress_config(base, cfg["alpha"], level)
+        cases[level] = check_grouped_gemm(
+            torch, ops, ref, dev, v["capacity"], lc.n_experts, lc.d_model,
+            lc.d_ff, B * S * K, GG_SEED + level)
+    emit({"phase": "kernels", "kernel": "grouped_gemm", "cell": GG_CELL,
+          "cases_by_level": {str(l): c for l, c in cases.items()}})
+    want_launches = want_rows = 0
+    n_test = fed["n_test"]
+    for level, v in lay.items():
+        c, kd = v["capacity"], fl["use_kd"] and level > 0
+        # a member step: three products forward, their three dX and three
+        # dW; a round's evaluation three; a KD round's teacher forward three
+        want_launches += L * (9 * R * steps + 3 * R + (3 * R if kd else 0))
+        want_rows += L * K * S * (R * steps * c * B + R * n_test
+                                  + (R * steps * c * B if kd else 0))
+    work = moe_kind.grouped_gemm_launches(
+        cfg, traffic, {l: v["capacity"] for l, v in lay.items()}, n_test)
+    eng.obs = make_observability(trace=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.train(fed["test"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counters = eng.obs.registry.snapshot()["counters"]
+    rec = {"phase": "granite_cell_main", "cell": GG_CELL, "seed": GG_SEED,
+           "layout": {str(l): v for l, v in lay.items()},
+           "grouped_gemm_launches": int(counters.get(
+               "moe/grouped_gemm_launches", 0)),
+           "expected_launches": want_launches,
+           "benchmark_count": sum(n for n, _, _ in work),
+           "routed_rows": int(counters.get("moe/routed_rows", 0)),
+           "expected_routed_rows": want_rows,
+           "cold_train_seconds": secs,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del eng, fed
+    torch.cuda.empty_cache()
+    if not (rec["grouped_gemm_launches"] == want_launches
+            == rec["benchmark_count"]
+            and rec["routed_rows"] == want_rows):
+        raise AssertionError(f"granite cell main path: {rec}")
+    emit(rec)
+    return cases, rec
 
 
 # ------------------------------------------------------------------ main path
@@ -4239,6 +4399,9 @@ def main():
     del meng
     torch.cuda.empty_cache()
 
+    # 14b. the grouped GEMM kernels and the granite cell's main path -------
+    gg_cases, gg_main = phase_grouped_gemm(torch, dev)
+
     # 15. the MoE federation, card == CPU ---------------------------------
     mbase = ModelConfig(**MOE_SMALL)
     finals, inits, runs = {}, {}, {}
@@ -4554,6 +4717,13 @@ def main():
          "max_abs_err": fl["max_abs_err"], "ms": fl["ms"],
          "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"]},
+        {"name": "grouped_gemm", "route": "cuda",
+         "source": "src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu",
+         "replaces": None, "cell": GG_CELL,
+         "launches": gg_main["grouped_gemm_launches"],
+         "launches_by_path": {"granite_cell_main":
+                              gg_main["grouped_gemm_launches"]},
+         "cases_by_level": {str(l): c for l, c in gg_cases.items()}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,10 @@
 """Model / run configuration dataclasses, a copy of ``repro.configs.base``.
 
 Every field is kept, so a configuration carries across the two packages
-unchanged.  Fields that select code the port has not ported yet
-(sharding and cache layouts, ``remat``) are data here; ``remat=True``
-raises in ``models/transformer.py``.
+unchanged; ``PORT_FIELDS`` (``attn_scale``, the last field) are the
+port's own, and at their defaults the model is JAX's.  Fields that select
+code the port has not ported yet (sharding and cache layouts, ``remat``)
+are data here; ``remat=True`` raises in ``models/transformer.py``.
 ``attn_impl`` keeps the JAX values: ``"pallas"`` selects the port's CUDA
 flash kernel (``models/attention.py``).
 """
@@ -17,6 +18,10 @@ from typing import Tuple
 def pad_vocab(v: int, multiple: int = 256) -> int:
     """Pad vocab to a mesh-divisible multiple (Megatron-style)."""
     return ((v + multiple - 1) // multiple) * multiple
+
+
+# ModelConfig's fields that JAX's has not
+PORT_FIELDS = ("attn_scale",)
 
 
 @dataclass(frozen=True)
@@ -40,7 +45,7 @@ class ModelConfig:
     n_experts: int = 0
     experts_per_tok: int = 0
     router_aux_coef: float = 0.01
-    moe_impl: str = "dense"       # dense | capacity (GShard grouped dispatch)
+    moe_impl: str = "dense"       # dense | capacity (GShard grouped dispatch) | dropless (port)
     moe_group: int = 512          # tokens per dispatch group (capacity impl)
     moe_capacity: float = 1.25    # capacity factor
     # >0: lax.scan over group-chunks of this many groups so only one chunk's
@@ -94,6 +99,14 @@ class ModelConfig:
     attn_impl: str = "jnp"
     remat: bool = False                      # rematerialize each superblock
     scan_unroll: bool = False                # unroll layer scans (dry-run cost measurement)
+    # port-only: the multiplier of the attention scores q·k (Granite 3.0's
+    # µP ``attention_multiplier``); 0 means head_dim ** -0.5
+    attn_scale: float = 0.0
+
+    @property
+    def softmax_scale(self) -> float:
+        """What the attention scores q·k are multiplied by."""
+        return self.attn_scale or self.head_dim ** -0.5
 
     @property
     def padded_vocab(self) -> int:

@@ -72,7 +72,7 @@ from repro_torch.data.sampler import class_balanced_batches, sample_batches
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import axis_size
 from repro_torch.models.tp import tp_shard_ctx
-from repro_torch.obs import NULL_OBS
+from repro_torch.obs import NULL_OBS, observing
 from repro_torch.obs.trace import synchronize
 
 
@@ -1140,14 +1140,17 @@ class FedRAC:
               ) -> FedRACResult:
         """Train the master, then each slave with members.  Their initial
         draws are queued on host threads first, so a slave's draw runs
-        behind the master's training; nothing drawn outlives the call."""
+        behind the master's training; nothing drawn outlives the call.
+        ``self.obs`` is current (``obs.current``) for the call, so that
+        model code can open spans and count (the MoE layer does)."""
         members = self.assignment.members
         self._init_draws = init_draw.InitDraws(init_draw.workers())
         try:
             for level in range(self.m):
                 if level == 0 or members.get(level):
                     self._queue_draw(self._init_draws, level)
-            return self._train(test, rounds_per_cluster)
+            with observing(self.obs):
+                return self._train(test, rounds_per_cluster)
         finally:
             self._init_draws.close()
             self._init_draws = None

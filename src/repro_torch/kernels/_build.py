@@ -24,7 +24,7 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {name: KERNELS_DIR / name / "csrc" / f"{name}.cu"
-           for name in ("fedagg", "distill", "flash")}
+           for name in ("fedagg", "distill", "flash", "grouped_gemm")}
 
 _lock = threading.Lock()
 _libs: dict = {}

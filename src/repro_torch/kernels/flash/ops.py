@@ -125,30 +125,31 @@ class FlashAttention(torch.autograd.Function):
     through the plain reference, one launch for a whole vmapped axis."""
 
     @staticmethod
-    def forward(q, k, v, causal, window, softcap):
+    def forward(q, k, v, causal, window, softcap, sm_scale):
         B, S, H, hd = q.shape
         KV = k.shape[2]
         qb = q.transpose(1, 2).reshape(B * H, S, hd).contiguous()
         kb = k.transpose(1, 2).reshape(B * KV, S, hd).contiguous()
         vb = v.transpose(1, 2).reshape(B * KV, S, hd).contiguous()
         ob = flash_attention_bh(qb, kb, vb, causal=causal, window=window,
-                                softcap=softcap, heads=H)
+                                softcap=softcap, sm_scale=sm_scale, heads=H)
         return ob.reshape(B, H, S, hd).transpose(1, 2).contiguous()
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window, softcap = inputs
+        q, k, v, causal, window, softcap, sm_scale = inputs
         ctx.save_for_backward(q, k, v)
-        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        sm_scale=sm_scale)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = ref.ref_gqa_vjp(q, k, v, g, **ctx.opts)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window, softcap):
+    def vmap(info, in_dims, q, k, v, causal, window, softcap, sm_scale):
         n = info.batch_size
 
         def fold(x, d):
@@ -157,11 +158,14 @@ class FlashAttention(torch.autograd.Function):
 
         out = FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
                                    fold(v, in_dims[2]), causal, window,
-                                   softcap)
+                                   softcap, sm_scale)
         return out.reshape(n, out.shape[0] // n, *out.shape[1:]), 0
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
-    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd)."""
-    return FlashAttention.apply(q, k, v, causal, int(window), float(softcap))
+                    softcap: float = 0.0, sm_scale: float | None = None):
+    """q: (B, S, H, hd); k, v: (B, S, KV, hd) -> (B, S, H, hd); the scores
+    scaled by ``sm_scale`` (hd ** -0.5 where None), in the forward kernel
+    and in the recomputing backward alike."""
+    return FlashAttention.apply(q, k, v, causal, int(window), float(softcap),
+                                None if sm_scale is None else float(sm_scale))

@@ -61,15 +61,16 @@ def attention_bh_gqa(q, k, v, *, causal: bool = True, window: int = 0,
                         softcap=softcap, sm_scale=sm_scale)
 
 
-def _gqa_probs(q, k, causal, window, softcap):
+def _gqa_probs(q, k, causal, window, softcap, sm_scale=None):
     """Model layout q: (B, S, H, hd), k: (B, T, KV, hd) -> the grouped
     query (B, S, KV, G, hd), the probabilities (B, KV, G, S, T), the capped
-    tanh (or None) and the mask, all fp32."""
+    tanh (or None) and the mask, all fp32.  The scores are scaled by
+    ``sm_scale`` (hd ** -0.5 where None)."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     qr = q.reshape(B, S, KV, H // KV, hd).to(torch.float32)
     s = torch.einsum("bskgd,btkd->bkgst", qr, k.to(torch.float32))
-    s = s * (hd ** -0.5)
+    s = s * (hd ** -0.5 if sm_scale is None else sm_scale)
     th = None
     if softcap > 0:
         th = torch.tanh(s / softcap)
@@ -80,26 +81,27 @@ def _gqa_probs(q, k, causal, window, softcap):
 
 
 def ref_gqa(q, k, v, *, causal: bool = True, window: int = 0,
-            softcap: float = 0.0):
+            softcap: float = 0.0, sm_scale: float | None = None):
     """Grouped-query attention in model layout (q: (B, S, H, hd), k, v:
     (B, T, KV, hd)), fp32 math, output in q's dtype."""
     B, S, H, hd = q.shape
-    _, p, _, _ = _gqa_probs(q, k, causal, window, softcap)
+    _, p, _, _ = _gqa_probs(q, k, causal, window, softcap, sm_scale)
     out = torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
 def ref_gqa_vjp(q, k, v, g, *, causal: bool = True, window: int = 0,
-                softcap: float = 0.0):
+                softcap: float = 0.0, sm_scale: float | None = None):
     """(dq, dk, dv) of ``ref_gqa`` for the output cotangent ``g``,
     recomputed in fp32 from q, k, v and written out in plain ops (no
     ``torch.autograd`` inside, so ``torch.func`` transforms it):
     P = softmax(S), dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ⊙ (dP − rowsum(dP ⊙ P)),
-    times the softcap derivative 1 − tanh² and the scale, zero where
+    times the softcap derivative 1 − tanh² and the scale (``sm_scale``,
+    hd ** -0.5 where None), zero where
     masked; dQ = dS·K and dK = dSᵀ·Q with the query group summed."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    qr, p, th, mask = _gqa_probs(q, k, causal, window, softcap)
+    qr, p, th, mask = _gqa_probs(q, k, causal, window, softcap, sm_scale)
     do = g.reshape(B, S, KV, H // KV, hd).to(torch.float32)
     dv = torch.einsum("bkgst,bskgd->btkd", p, do)
     dp = torch.einsum("bskgd,btkd->bkgst", do, v.to(torch.float32))
@@ -107,7 +109,7 @@ def ref_gqa_vjp(q, k, v, g, *, causal: bool = True, window: int = 0,
     ds = torch.where(mask, ds, 0.0)
     if th is not None:
         ds = ds * (1.0 - th * th)
-    ds = ds * (hd ** -0.5)
+    ds = ds * (hd ** -0.5 if sm_scale is None else sm_scale)
     dq = torch.einsum("bkgst,btkd->bskgd", ds, k.to(torch.float32))
     dk = torch.einsum("bkgst,bskgd->btkd", ds, qr)
     return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),

@@ -14,6 +14,10 @@ the JAX package's so configurations carry across:
   the kernel serves causal attention without M-RoPE; anything else takes
   the ``"jnp"`` route.
 
+Every route, decode included, multiplies the scores by
+``cfg.softmax_scale``: ``attn_scale`` where set (a port-only field), else
+head_dim ** -0.5 as in JAX.
+
 The serving half: ``cross_kv`` / ``cross_attn_forward`` (the enc-dec
 decoder's cross-attention, no positional encoding), ``init_attn_cache`` and
 ``attn_decode`` (one new token against a KV cache, the sliding-window mask
@@ -84,7 +88,7 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     KV = k.shape[2]
     q = q.reshape(B, S, KV, H // KV, hd)
     scores = torch.einsum("bskgd,btkd->bkgst", q, k).to(torch.float32)
-    scores = scores * (hd ** -0.5)
+    scores = scores * cfg.softmax_scale
     scores = softcap(scores, cfg.attn_softcap)
     scores = torch.where(mask[:, :, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -104,7 +108,7 @@ def _sdpa_blocked(cfg: ModelConfig, q, k, v, *, causal: bool, window: int,
     if T % bk:
         raise ValueError(f"blocked attention: T={T} is not a multiple of "
                          f"the block {bk}")
-    scale = hd ** -0.5
+    scale = cfg.softmax_scale
     qr = q.reshape(B, S, KV, G, hd).to(torch.float32)
     q_idx = torch.arange(S, device=q.device)
     m = torch.full((B, KV, G, S), NEG_INF, dtype=torch.float32,
@@ -151,7 +155,8 @@ def _attend(cfg: ModelConfig, q, k, v, *, window: int, causal: bool):
     S = q.shape[1]
     if cfg.attn_impl == "pallas" and not cfg.mrope_sections and causal:
         return flash_ops.flash_attention(q, k, v, causal=True, window=window,
-                                         softcap=cfg.attn_softcap)
+                                         softcap=cfg.attn_softcap,
+                                         sm_scale=cfg.softmax_scale)
     if cfg.attn_impl == "blocked":
         return _sdpa_blocked(cfg, q, k, v, causal=causal, window=window)
     if causal:
@@ -315,7 +320,7 @@ def _attend_cache(cfg: ModelConfig, q, kc, vc, mask, seq: tuple):
                      kc).to(torch.float32)
     if dh != cfg.head_dim:
         s = tp.reduce_from_tp(s)
-    s = softcap(s * cfg.head_dim ** -0.5, cfg.attn_softcap)
+    s = softcap(s * cfg.softmax_scale, cfg.attn_softcap)
     s = torch.where(mask[None, None, None, None], s, NEG_INF)
     if not seq:
         probs = torch.softmax(s, dim=-1).to(vc.dtype)

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN: top-k router and two dispatch strategies, a torch
-copy of ``repro.models.moe``.
+"""Mixture-of-Experts FFN: top-k router and three dispatch strategies, a
+torch copy of ``repro.models.moe`` with one of its own.
 
 * ``dense``: every expert runs on every token, outputs masked by the
   combine matrix.  Exact top-k semantics (no token dropping).
@@ -7,6 +7,18 @@ copy of ``repro.models.moe``.
   C = max(4, ceil(gs*K*capacity_factor / E)).  Token order within a group
   decides dropping, as in GShard; ``moe_chunk_groups`` runs the groups in
   chunks so that only one chunk's dispatch tensors are live.
+* ``dropless`` (the port's own): every routing choice reaches its expert
+  and only the routed work is done.  The N·K choices are sorted by expert
+  (a stable sort, so token order within an expert), the per-expert counts
+  give the group offsets on the device, and the experts' three products
+  run as grouped GEMMs (``kernels/grouped_gemm``) over the rows each
+  expert holds; the combine undoes the sort and weights each choice by
+  its gate.  Exact top-k semantics whatever the imbalance.  One chip:
+  under a tensor-parallel split it raises.
+
+``apply_moe`` opens the span ``moe`` of the current observability
+(``obs.current``) around the layer, and raises on an unknown
+``moe_impl``.
 
 The router's top-k breaks ties as ``jax.lax.top_k`` does, lower expert
 index first (a stable descending sort: ``torch.topk`` promises no order,
@@ -35,7 +47,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.grouped_gemm import ops as gg_ops
 from repro_torch.models import tp
 from repro_torch.models.layers import dense_init, normal
 
@@ -188,9 +202,41 @@ def _capacity_groups(p, cfg: ModelConfig, xt, cap: int, split):
     return y, _aux_loss(cfg, probs, top_i)
 
 
+def _apply_dropless(p, cfg: ModelConfig, x, split):
+    """Every choice on its expert's rows (the module docstring)."""
+    if split:
+        raise NotImplementedError(
+            "MoE dropless dispatch under a tensor-parallel split")
+    B, S, d = x.shape
+    N, E, K = B * S, cfg.n_experts, cfg.experts_per_tok
+    probs, top_w, top_i = _route(p, cfg, x)
+    choice = top_i.reshape(N * K)                     # token-major
+    order = torch.sort(choice, stable=True).indices   # grouped by expert
+    counts = _one_hot(choice, E).sum(dim=0)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    # each token's row once per choice, then in expert order: the expand's
+    # backward sums a token's K gradients in order, where a repeated index
+    # would add them atomically
+    xs = x.reshape(N, 1, d).expand(N, K, d).reshape(N * K, d)[order]
+    g = gg_ops.grouped_mm(xs, p["w_gate"], offsets, routed=True)
+    u = gg_ops.grouped_mm(xs, p["w_up"], offsets)
+    ys = gg_ops.grouped_mm(F.silu(g) * u, p["w_down"], offsets)
+    y = ys[torch.argsort(order)].reshape(N, K, d)     # token-major again
+    y = (y * top_w.reshape(N, K, 1).to(y.dtype)).sum(dim=1)
+    return y.reshape(B, S, d), _aux_loss(cfg, probs, top_i)
+
+
+_DISPATCH = {"dense": _apply_dense, "capacity": _apply_capacity,
+             "dropless": _apply_dropless}
+
+
 def apply_moe(p, cfg: ModelConfig, x):
     """x: (B, S, d) -> (y, load-balance aux loss)."""
+    run = _DISPATCH.get(cfg.moe_impl)
+    if run is None:
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}: one of "
+                         f"{sorted(_DISPATCH)}")
     split = expert_split(p, cfg)
-    run = _apply_capacity if cfg.moe_impl == "capacity" else _apply_dense
-    y, aux = run(p, cfg, x, split)
-    return (tp.reduce_from_tp(y) if split else y), aux
+    with obs.current().tracer.span("moe", cat="fl"):
+        y, aux = run(p, cfg, x, split)
+        return (tp.reduce_from_tp(y) if split else y), aux

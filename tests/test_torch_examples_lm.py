@@ -16,6 +16,7 @@ from repro.core.scaling import param_count as j_param_count
 
 from _torch_examples_common import load_example
 from _torch_threads import one_torch_thread  # noqa: F401
+from repro_torch.configs.base import PORT_FIELDS
 from repro_torch.core.scaling import param_count
 
 
@@ -35,7 +36,9 @@ def _jax_config(full_100m, level):
 def test_example_config_equals_jax(full_100m, level):
     ex = load_example("torch_fedrac_lm_train")
     t, j = ex.make_config(full_100m, level), _jax_config(full_100m, level)
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    port = dataclasses.asdict(t)
+    assert [port.pop(k) for k in PORT_FIELDS] == [0.0] * len(PORT_FIELDS)
+    assert port == dataclasses.asdict(j)
     assert param_count(t) == j_param_count(j)
 
 

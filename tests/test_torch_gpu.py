@@ -276,3 +276,68 @@ def test_cuda_generator_draws_on_the_card(cuda, arch):
         assert a.device.type == "cuda" and b.device.type == "cpu"
         assert a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16
         assert bool(torch.isfinite(a.float()).all())
+
+
+@pytest.mark.parametrize("G,Gw,K,N", [(12, 4, 72, 40), (64, 64, 1024, 512),
+                                      (32, 32, 512, 1024)])
+def test_grouped_gemm_kernels_match_plain(cuda, G, Gw, K, N):
+    """The rows kernel (plain and transposed weights) and the weight
+    gradient kernel against the per-group plain versions, with empty
+    groups and one group of most rows; fp32 FMAs against fp32 GEMMs:
+    rtol 1e-5 of the largest entry."""
+    from repro_torch import obs
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
+    from repro_torch.kernels.grouped_gemm import ref as gg_ref
+    g = torch.Generator().manual_seed(G + K)
+    counts = torch.randint(0, 40, (G,), generator=g)
+    counts[::5] = 0
+    counts[1] = 700
+    off = torch.cat([torch.zeros(1, dtype=torch.int64),
+                     counts.cumsum(0)]).to(cuda)
+    M = int(counts.sum())
+    x = torch.randn(M, K, generator=g).to(cuda)
+    w = (torch.randn(Gw, K, N, generator=g) * K ** -0.5).to(cuda)
+    d = torch.randn(M, N, generator=g).to(cuda)
+
+    def close(a, b):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+
+    with obs.observing(obs.make_observability(trace=False)) as o:
+        close(gg_ops.grouped_rows(x, w, off), gg_ref.grouped_rows(x, w, off))
+        close(gg_ops.grouped_rows(x, w.transpose(1, 2).contiguous(), off,
+                                  True),
+              gg_ref.grouped_rows(x, w, off))
+        close(gg_ops.grouped_wgrad(x, d, off),
+              gg_ref.grouped_wgrad(x, d, off))
+    assert o.registry.counter("moe/grouped_gemm_launches").value == 3
+
+
+def test_dropless_moe_on_card_matches_cpu(cuda):
+    """Granite's 32 experts top-8 at a small width, under the members'
+    vmap(grad): the card's grouped kernels give the CPU's values and
+    gradients."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m", smoke=True).replace(
+        n_experts=32, experts_per_tok=8, d_model=128, d_ff=64,
+        moe_impl="dropless")
+    gen = torch.Generator().manual_seed(2)
+    ps = [moe.init_moe(gen, cfg, torch.float32) for _ in range(3)]
+    P = {k: torch.stack([p[k] for p in ps]) for k in ps[0]}
+    x = torch.randn(3, 2, 64, 128, generator=gen)
+
+    def loss(p, x):
+        y, aux = moe.apply_moe(p, cfg, x)
+        return (y ** 2).mean() + aux
+
+    step = vmap(grad_and_value(loss, argnums=(0, 1)))
+    (gp, gx), v = step(P, x)
+    (gp_c, gx_c), v_c = step({k: t.to(cuda) for k, t in P.items()},
+                             x.to(cuda))
+    torch.testing.assert_close(v_c.cpu(), v, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gx_c.cpu(), gx, rtol=1e-4, atol=1e-6)
+    for k in gp:
+        torch.testing.assert_close(gp_c[k].cpu(), gp[k], rtol=1e-4,
+                                   atol=1e-6)

@@ -30,6 +30,7 @@ from repro.models import transformer as j_tf
 
 from repro_torch import interop
 from repro_torch.configs import ARCHS, get_config, list_archs, smoke_variant
+from repro_torch.configs.base import PORT_FIELDS
 from repro_torch.core import scaling
 from repro_torch.core.families import lm_family
 from repro_torch.core.plane import make_plane_spec
@@ -59,12 +60,18 @@ def _tokens(cfg, B=2, S=32, seed=0):
 
 
 # ------------------------------------------------------------------ configs
+def _jax_fields(cfg) -> dict:
+    """The port's config as JAX's fields; its own fields at their 0."""
+    out = dataclasses.asdict(cfg)
+    assert all(out.pop(k) == 0.0 for k in PORT_FIELDS)
+    return out
+
+
 @pytest.mark.parametrize("name", sorted(J_ARCHS))
 def test_arch_and_smoke_configs_equal_jax(name):
     assert list_archs() == sorted(J_ARCHS)
-    assert dataclasses.asdict(ARCHS[name]) == dataclasses.asdict(
-        J_ARCHS[name])
-    assert dataclasses.asdict(get_config(name, smoke=True)) == \
+    assert _jax_fields(ARCHS[name]) == dataclasses.asdict(J_ARCHS[name])
+    assert _jax_fields(get_config(name, smoke=True)) == \
         dataclasses.asdict(j_get_config(name, smoke=True))
     for c, jc in ((ARCHS[name], J_ARCHS[name]),
                   (smoke_variant(ARCHS[name]), j_get_config(name, True))):
@@ -77,7 +84,7 @@ def test_scaling_equals_jax(name):
     for level in range(4):
         c = scaling.compress_config(ARCHS[name], 0.5, level)
         jc = j_scaling.compress_config(J_ARCHS[name], 0.5, level)
-        assert dataclasses.asdict(c) == dataclasses.asdict(jc)
+        assert _jax_fields(c) == dataclasses.asdict(jc)
         assert scaling.param_count(c) == j_scaling.param_count(jc)
         assert scaling.active_param_count(c) == \
             j_scaling.active_param_count(jc)
@@ -87,7 +94,7 @@ def test_scaling_equals_jax(name):
         for kind in ("train", "prefill", "decode"):
             assert scaling.analytic_step_flops(c, kind, 8, 1024) == \
                 j_scaling.analytic_step_flops(jc, kind, 8, 1024)
-    assert [dataclasses.asdict(c) for c in
+    assert [_jax_fields(c) for c in
             scaling.model_family(ARCHS[name], 0.5, 3)] == \
         [dataclasses.asdict(c) for c in
          j_scaling.model_family(J_ARCHS[name], 0.5, 3)]
